@@ -1,0 +1,17 @@
+"""mpi_tpu_torch — the PyTorch/CUDA port of ``mpi_tpu`` for NVIDIA Hopper.
+
+The package sits beside the JAX package and computes the same functions.
+Plain tensor code is PyTorch; each kernel that the JAX package wrote in
+Pallas for the TPU is a CUDA C++ kernel for ``sm_90a`` here
+(``ops/csrc/``), built at first use. The port imports neither ``jax`` nor
+``mpi_tpu``: it keeps its own copy of what it needs.
+
+Ported so far: the serving path of the flagship decoder LM — KV-cache
+``generate`` (``models/``) over the flash-decode kernel
+(``ops/decode_attention.py``). Entry points run on the CUDA device unless
+the caller passes ``device="cpu"``.
+"""
+
+import torch  # noqa: F401  (the port's one framework)
+
+__version__ = "0.1.0"

@@ -1,0 +1,92 @@
+"""Rules the PyTorch port keeps, checked without a GPU.
+
+* The port imports neither ``jax`` nor the JAX package ``mpi_tpu``.
+* Entry points run on the CUDA device unless the caller names another: with
+  CUDA absent and no device given they raise instead of using the CPU.
+* The decode wrapper takes the plain path only for CPU tensors; any other
+  device raises instead of falling back.
+* A missing CUDA compiler is an error, never a stub.
+"""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from mpi_tpu_torch.models import TransformerConfig, generate, init_params
+from mpi_tpu_torch.ops import _build
+from mpi_tpu_torch.ops.decode_attention import flash_decode_attention
+
+ROOT = Path(__file__).resolve().parent.parent
+CFG = TransformerConfig(vocab=64, d_model=32, n_heads=4, n_layers=1,
+                        d_ff=64, max_seq=16)
+# `import jax`, `from jax`, or the JAX package by module path; the port's
+# own name (mpi_tpu_torch) does not match.
+FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)|\bmpi_tpu\.|"
+                       r"\bfrom\s+mpi_tpu\s|\bimport\s+mpi_tpu\b(?!_)",
+                       re.MULTILINE)
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, mpi_tpu_torch, mpi_tpu_torch.models, "
+            "mpi_tpu_torch.serve\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'mpi_tpu'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in [*(ROOT / "mpi_tpu_torch").rglob(
+        "*.py"), *(ROOT / "mpi_tpu_torch").rglob("*.cu"),
+        ROOT / "chip_smoke.py"]))
+def test_port_sources_name_no_jax(path):
+    hits = FORBIDDEN.findall((ROOT / path).read_text())
+    assert not hits, f"{path}: {hits}"
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    params = init_params(CFG, torch.Generator().manual_seed(0), "cpu")
+    prompt = torch.zeros((1, 4), dtype=torch.long)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate(params, prompt, CFG, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(CFG, torch.Generator().manual_seed(0))
+    # Asking for the CPU by name is the one way onto it.
+    assert generate(params, prompt, CFG, 2, device="cpu").shape == (1, 2)
+
+
+def test_generate_refuses_params_on_another_device():
+    params = init_params(CFG, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match="params lie on"):
+        generate(params, torch.zeros((1, 4), dtype=torch.long), CFG, 2,
+                 device="meta")
+
+
+def test_decode_wrapper_never_falls_back_off_the_cpu():
+    q = torch.empty((1, 4, 32), device="meta")
+    k = torch.empty((1, 8, 4, 32), device="meta")
+    with pytest.raises(ValueError, match="cuda .kernel. or cpu"):
+        flash_decode_attention(q, k, k, 3)
+
+
+def test_cpu_calls_are_not_counted_as_kernel_launches():
+    before = flash_decode_attention.launches
+    q = torch.randn(1, 4, 32)
+    k = torch.randn(1, 8, 4, 32)
+    flash_decode_attention(q, k, k, 3)
+    assert flash_decode_attention.launches == before
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build._nvcc()
