@@ -6,14 +6,22 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``mpi_tpu_torch/ops/csrc``, holds
-each kernel against its plain PyTorch version on the card, serves the
-flagship decoder LM through ``generate`` (the port's main path) and checks
-what comes out, times the path and the kernels, and prints:
+each kernel against its plain PyTorch version on the card, drives the
+port's two paths and checks what comes out:
 
-* a ``{"kernels": [...]}`` line: for each kernel of the path its route,
-  source, the TPU kernel it replaces, its launches on the main path, its
-  largest error against the plain version, and its time beside its bound,
-  the plain version's time and one PyTorch library call's time;
+* serving: the flagship decoder LM through ``generate`` (the
+  flash-decode kernel);
+* training: ten AdamW steps of the flagship LM at full width and depth
+  through ``make_train_step`` (the flash forward and the two FA-2 backward
+  kernels), one more with ``remat`` and one with ``grad_accum=2``, and one
+  float32 step with flash attention against dense attention;
+
+then times the paths and the kernels, and prints:
+
+* a ``{"kernels": [...]}`` line: for each kernel its route, source, the TPU
+  kernel it replaces, its launches on its path, its largest error against
+  the plain version, and its time beside its bound, the plain version's
+  time and one PyTorch library call's time;
 * the card's name and power limit as ``nvidia-smi`` gives them;
 * as the last line ``{"ok": true, "device": {...}}``.
 
@@ -33,19 +41,40 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 
-# Kernel against plain version. float32: summation order only. bfloat16:
-# p is rounded to bf16 at each tile's running max in the kernel and at the
-# global max in the plain version, and the output is rounded to bf16 (one
-# ulp is 2**-8 relative), so out gets a bf16-sized tolerance; lse is
-# float32 in both and differs by summation order.
+# Decode kernel against plain version. float32: summation order only.
+# bfloat16: p is rounded to bf16 at each tile's running max in the kernel
+# and at the global max in the plain version, and the output is rounded to
+# bf16 (one ulp is 2**-8 relative), so out gets a bf16-sized tolerance; lse
+# is float32 in both and differs by summation order.
 KERNEL_TOL = {
     "torch.float32": {"out": (1e-5, 1e-5), "lse": (1e-5, 1e-5)},
     "torch.bfloat16": {"out": (2e-2, 1e-2), "lse": (1e-3, 1e-5)},
+}
+# Flash kernels against plain versions, (atol, rtol). float32: the kernels
+# sum in another order than cuBLAS; out and lse get 1e-5, the gradients,
+# sums over up to 1024 rows, 1e-4. bfloat16: the forward kernel rounds p
+# to bf16 at each key tile's running max where the plain version rounds it
+# at the row's global max, and every output is bf16, so out and the
+# gradients get 2e-2; lse is float32 in both and gets 1e-3.
+FLASH_TOL = {
+    "torch.float32": {"out": (1e-5, 1e-5), "lse": (1e-5, 1e-5),
+                      "grad": (1e-4, 1e-4)},
+    "torch.bfloat16": {"out": (2e-2, 2e-2), "lse": (1e-3, 1e-3),
+                       "grad": (2e-2, 2e-2)},
 }
 # Teacher-forced decode, flash against dense, float32 logits after 8
 # layers: both are float32 end to end and differ by summation order.
 SLICE_LOGITS_ATOL = 1e-3
 SLICE_LOGITS_RTOL = 1e-3
+# One float32 training step at flagship width and depth, flash attention
+# against dense: summation order only, compounded through 8 layers and
+# their backward. The loss gets rtol 1e-5; each gradient leaf may differ
+# by at most 1e-3 of its largest element.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_REL = 1e-3
+# remat recomputes the same forward: the loss of its first step must equal
+# the plain step's to rounding.
+REMAT_LOSS_RTOL = 1e-5
 
 # About 100 ms of GPU clock cycles: longer than the host takes to enqueue
 # one timed run of launches (checked: the run fails if it is not). Each
@@ -57,6 +86,7 @@ N_REQUESTS = 3
 BATCH = 8
 PROMPT_LEN = 128
 NEW_TOKENS = 128
+TRAIN_STEPS = 10
 
 
 class SmokeError(RuntimeError):
@@ -76,6 +106,384 @@ def card_line() -> str:
     return out.splitlines()[0].strip()
 
 
+def kernel_ms(fn, sets, reps):
+    """Device ms per call of ``fn`` over ``reps`` calls, cycling ``sets``
+    of arguments, after a warm-up, with CUDA events."""
+    import torch
+
+    for args in sets[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # Hold the stream busy while the host enqueues the launches, so the
+    # events time the launches back to back on the card and not the
+    # Python that issues them.
+    sleep = torch.cuda.Event(enable_timing=True)
+    sleep.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    t_host = time.perf_counter()
+    for i in range(reps):
+        fn(*sets[i % len(sets)])
+    t_host = (time.perf_counter() - t_host) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    check(sleep.elapsed_time(start) > t_host,
+          f"host enqueue ({t_host} ms) outlasted the busy stream "
+          f"({sleep.elapsed_time(start)} ms): the timing would be the "
+          f"host's")
+    return start.elapsed_time(end) / reps
+
+
+def bound(n_bytes, n_ops, dtype):
+    """(bound ms, what bounds it): the larger of the bytes over the
+    memory rate and the operations over the peak rate for ``dtype``."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_FLOPS[str(dtype)] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def flash_work(b, s, t, h, hk, d, elt, causal):
+    """{kernel: (bytes, operations)} that kernels 1-3 need for these
+    inputs: each input read once and each output written once; 2 d
+    operations per product for every (query, key) pair the mask keeps."""
+    pairs = sum(min(r + 1, t) for r in range(s)) if causal else s * t
+    product = 2 * d * pairs * b * h
+    q_bytes = b * s * h * d * elt
+    kv_bytes = b * t * hk * d * elt
+    rows = 4 * b * h * s  # one float32 row vector (lse or delta)
+    return {
+        "flash_fwd": (2 * q_bytes + 2 * kv_bytes + rows, 2 * product),
+        "flash_bwd_dq": (3 * q_bytes + 2 * kv_bytes + 2 * rows,
+                         3 * product),
+        "flash_bwd_dkv": (2 * q_bytes + 4 * kv_bytes + 2 * rows,
+                          4 * product),
+    }
+
+
+def check_flash_kernels(dev, gen):
+    """Kernels 1-3 against their plain versions on the card. Returns the
+    largest |kernel - plain| of each kernel over every case."""
+    import torch
+
+    from mpi_tpu_torch.ops.attention import (flash_attention_bwd_plain,
+                                             flash_attention_fwd_plain,
+                                             flash_chunk_bwd, flash_fwd)
+
+    shapes = [  # (b, s, t, h, hk, d, causal)
+        (8, 1024, 1024, 8, 8, 128, True),   # flagship
+        (8, 1024, 1024, 8, 2, 128, True),   # GQA, kv 2
+        (8, 1024, 1024, 8, 1, 128, True),   # MQA, kv 1
+        (8, 1024, 1024, 8, 8, 128, False),  # non-causal
+        (4, 1000, 1000, 8, 8, 128, True),   # no multiple of any tile
+        (4, 512, 512, 16, 4, 64, True),     # head_dim 64
+        (4, 512, 768, 8, 2, 128, False),    # s != t: a ring chunk
+    ]
+    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    n_cmp = 0
+    for b, s, t, h, hk, d, causal in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = FLASH_TOL[str(dtype)]
+            q, g = (torch.randn(b, s, h, d, generator=gen,
+                                device=dev).to(dtype) for _ in range(2))
+            k, v = (torch.randn(b, t, hk, d, generator=gen,
+                                device=dev).to(dtype) for _ in range(2))
+            where = (f"b={b} s={s} t={t} h={h} hk={hk} d={d} "
+                     f"causal={causal} {dtype}")
+            out, lse = flash_fwd(q, k, v, causal)
+            ref, ref_lse = flash_attention_fwd_plain(q, k, v, causal)
+            # Both backward sides take the plain forward's rows.
+            got = flash_chunk_bwd(q, k, v, ref, ref_lse, g, causal)
+            want = flash_attention_bwd_plain(q, k, v, ref, ref_lse, g,
+                                             causal)
+            torch.cuda.synchronize()
+            pairs = [("out", "flash_fwd", out, ref, tol["out"]),
+                     ("lse", None, lse, ref_lse, tol["lse"]),
+                     ("dq", "flash_bwd_dq", got[0], want[0], tol["grad"]),
+                     ("dk", "flash_bwd_dkv", got[1], want[1], tol["grad"]),
+                     ("dv", "flash_bwd_dkv", got[2], want[2], tol["grad"])]
+            for name, kernel, x, w, (atol, rtol) in pairs:
+                check(x.dtype == w.dtype and x.shape == w.shape,
+                      f"{name} {x.dtype} {tuple(x.shape)} at {where}")
+                err = (x.float() - w.float()).abs().max().item()
+                check(torch.allclose(x.float(), w.float(), atol=atol,
+                                     rtol=rtol),
+                      f"flash kernel {name} differs from plain by {err} at "
+                      f"{where}")
+                if kernel:
+                    worst[kernel] = max(worst[kernel], err)
+            n_cmp += 1
+            del q, g, k, v, out, lse, ref, ref_lse, got, want
+    print(f"flash kernels vs plain: {n_cmp} cases (out, lse, dq, dk, dv "
+          f"each) pass; max |err| {worst} (tolerances {FLASH_TOL})")
+    return worst
+
+
+def train_slice(dev):
+    """Ten AdamW steps of the flagship at full width and depth on one
+    fixed batch, then one step with remat and one with grad_accum=2.
+    Returns (launches of each flash kernel over the ten steps, ms per
+    step after the first)."""
+    import numpy as np
+    import torch
+
+    from mpi_tpu_torch.models import make_train_step
+    from mpi_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
+                                             flash_fwd)
+    from mpi_tpu_torch.train import flagship_train_config
+
+    kernels = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+    cfg = flagship_train_config()
+    batch, seq = 8, cfg.max_seq - 1
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (batch, seq + 1))).to(dev)
+    init_state, step = make_train_step(cfg)
+    state = init_state(torch.Generator().manual_seed(0))
+    check(all(x.device.type == "cuda" and x.dtype == torch.float32
+              for x in state["opt"].param_groups[0]["params"]),
+          "train state is not float32 masters on the card")
+
+    for w in kernels:
+        w.launches = 0
+    losses = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for i in range(TRAIN_STEPS):
+        before = [w.launches for w in kernels]
+        state, loss = step(state, tokens)
+        got = [w.launches - c for w, c in zip(kernels, before)]
+        check(got == [cfg.n_layers] * 3,
+              f"step {i}: flash kernels 1, 2, 3 launched {got} times, want "
+              f"{cfg.n_layers} each")
+        losses.append(loss)
+        if i == 0:
+            start.record()  # the first step is the warm-up
+    end.record()
+    torch.cuda.synchronize()
+    launches = [w.launches for w in kernels]
+    ms = start.elapsed_time(end) / (TRAIN_STEPS - 1)
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    print(f"trained {TRAIN_STEPS} steps at batch {batch} x seq {seq}, "
+          f"{cfg.n_layers} layers: losses {losses}; flash kernel launches "
+          f"{launches} = {TRAIN_STEPS} steps x {cfg.n_layers} layers")
+    del state
+
+    # remat: the same first step from the same seeded state, with kernel 1
+    # run again for each layer in the backward.
+    _, rstep = make_train_step(flagship_train_config(remat=True))
+    rstate = init_state(torch.Generator().manual_seed(0))
+    before = [w.launches for w in kernels]
+    rstate, rloss = rstep(rstate, tokens)
+    torch.cuda.synchronize()
+    got = [w.launches - c for w, c in zip(kernels, before)]
+    check(got == [2 * cfg.n_layers, cfg.n_layers, cfg.n_layers],
+          f"remat step launched kernels 1, 2, 3 {got} times, want "
+          f"{[2 * cfg.n_layers, cfg.n_layers, cfg.n_layers]}")
+    rloss = float(rloss)
+    check(abs(rloss - losses[0]) <= REMAT_LOSS_RTOL * abs(losses[0]),
+          f"remat loss {rloss} differs from {losses[0]}")
+    print(f"remat step: loss {rloss!r} (plain step {losses[0]!r}); kernel "
+          f"launches {got}")
+
+    _, astep = make_train_step(cfg, grad_accum=2)
+    before = [w.launches for w in kernels]
+    rstate, aloss = astep(rstate, tokens)
+    torch.cuda.synchronize()
+    got = [w.launches - c for w, c in zip(kernels, before)]
+    check(got == [2 * cfg.n_layers] * 3 and bool(torch.isfinite(aloss)),
+          f"grad_accum=2 step: launches {got}, loss {float(aloss)}")
+    print(f"grad_accum=2 step: loss {float(aloss)!r}; kernel launches "
+          f"{got}")
+    return launches, ms
+
+
+def train_profile(dev, card, step_ms):
+    """Where a flagship training step's device time goes: torch.profiler
+    over two steps after a warm-up, device time by kernel and by group.
+    The profiler slows the host, so the busy share is also given against
+    ``step_ms``, the step's time measured without it."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpi_tpu_torch.models import make_train_step
+    from mpi_tpu_torch.train import flagship_train_config
+
+    cfg = flagship_train_config()
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (8, cfg.max_seq))).to(dev)
+    init_state, step = make_train_step(cfg)
+    state = init_state(torch.Generator().manual_seed(0))
+    step(state, tokens)
+    torch.cuda.synchronize()
+    n = 2
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(n):
+            step(state, tokens)
+        end.record()
+        torch.cuda.synchronize()
+    window = start.elapsed_time(end) / n
+    # Kernels only: a user annotation (Optimizer.step) spans kernels that
+    # are counted on their own.
+    kernels = [(e.self_device_time_total / 1e3 / n, e.count / n, e.key)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and
+               e.self_device_time_total > 0 and
+               not getattr(e, "is_user_annotation", False)]
+    busy = sum(ms for ms, _, _ in kernels)
+    if not kernels:
+        print("train step profile: the profiler saw no device time; "
+              "breakdown not measured")
+        return
+
+    def group(name):
+        low = name.lower()
+        if "flash_" in low:
+            return "flash attention kernels 1-3"
+        if any(w in low for w in ("gemm", "xmma", "cutlass", "cublas",
+                                  "nvjet")):
+            return "matrix products (cuBLAS)"
+        if "multi_tensor_apply" in low:
+            return "AdamW (foreach)"
+        return "elementwise, reductions, copies"
+
+    groups = {}
+    for ms, count, name in kernels:
+        g = groups.setdefault(group(name), [0.0, 0.0])
+        g[0] += ms
+        g[1] += count
+    print(f"train step profile (torch.profiler, {n} steps after a warm-up; "
+          f"profiling slows the host): {window!r} ms per step window, "
+          f"{busy!r} ms of kernels, device busy share {busy / window!r} "
+          f"of the profiled window and {busy / step_ms!r} of the "
+          f"{step_ms!r} ms step measured without the profiler, "
+          f"{sum(c for _, c, _ in kernels)!r} kernel launches per step  "
+          f"[{card}]")
+    for name, (ms, count) in sorted(groups.items(), key=lambda x: -x[1][0]):
+        print(f"  {name}: {ms!r} ms per step, {count!r} launches")
+    for ms, count, name in sorted(kernels, reverse=True)[:12]:
+        print(f"    {ms!r} ms, {count!r} launches: {name[:110]}")
+
+
+def flash_vs_dense(dev):
+    """One float32 forward and backward at flagship width and depth from
+    one seeded state, with flash attention and with dense attention: the
+    loss and every gradient must agree."""
+    import numpy as np
+    import torch
+
+    from mpi_tpu_torch.models import init_params, loss_fn
+    from mpi_tpu_torch.models.transformer import _leaves
+    from mpi_tpu_torch.train import flagship_train_config
+
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 8192, (8, 1025))).to(dev)
+    results = []
+    for impl in ("flash", "dense"):
+        cfg = flagship_train_config(dtype=torch.float32,
+                                    attention_impl=impl)
+        params = init_params(cfg, torch.Generator().manual_seed(0))
+        leaves = _leaves(params)
+        for x in leaves:
+            x.requires_grad_(True)
+        loss = loss_fn(params, tokens, cfg)
+        loss.backward()
+        results.append((loss.item(), [x.grad for x in leaves]))
+        del params, leaves, loss
+    (lf, gf), (ld, gd) = results
+    check(np.isfinite(lf) and abs(lf - ld) <= TRAIN_LOSS_RTOL * abs(ld),
+          f"float32 flash loss {lf} vs dense {ld}")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(gf, gd)):
+        rel = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+        check(bool(torch.isfinite(a).all()) and rel <= TRAIN_GRAD_REL,
+              f"gradient leaf {i}: flash vs dense differ by {rel} of its "
+              f"largest element")
+        worst = max(worst, rel)
+    print(f"float32 step, flash vs dense: loss {lf!r} vs {ld!r}; "
+          f"{len(gf)} gradient leaves agree, worst max|diff|/max|grad| "
+          f"{worst!r} (limit {TRAIN_GRAD_REL})")
+
+
+def flash_times(dev, gen, card):
+    """Each flash kernel at the flagship training shape: kernel, plain
+    version and SDPA times (ms) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from mpi_tpu_torch.ops.attention import (_bwd_plain, _delta,
+                                             flash_attention_fwd_plain,
+                                             flash_bwd_dkv, flash_bwd_dq,
+                                             flash_fwd)
+
+    b, s, h, d, dtype = 8, 1024, 8, 128, torch.bfloat16
+    # Two sets of inputs (2 x 86 MB, over the 50 MB L2) alternate, so each
+    # launch reads its inputs from device memory, as a training step does.
+    sets = []
+    for _ in range(2):
+        q, k, v, g = (torch.randn(b, s, h, d, generator=gen,
+                                  device=dev).to(dtype) for _ in range(4))
+        out, lse = flash_fwd(q, k, v, True)
+        sets.append((q, k, v, g, lse, _delta(out, g)))
+    work = flash_work(b, s, s, h, h, d, 2, True)
+    fns = {
+        "flash_fwd": (lambda q, k, v, g, lse, dl: flash_fwd(q, k, v, True),
+                      lambda q, k, v, g, lse, dl:
+                      flash_attention_fwd_plain(q, k, v, True)),
+        "flash_bwd_dq": (lambda q, k, v, g, lse, dl:
+                         flash_bwd_dq(q, k, v, g, lse, dl, True),
+                         lambda q, k, v, g, lse, dl:
+                         _bwd_plain(q, k, v, g, lse, dl, True)),
+        "flash_bwd_dkv": (lambda q, k, v, g, lse, dl:
+                          flash_bwd_dkv(q, k, v, g, lse, dl, True),
+                          lambda q, k, v, g, lse, dl:
+                          _bwd_plain(q, k, v, g, lse, dl, True)),
+    }
+
+    # SDPA, the yardstick: forward, and its backward alone (one autograd
+    # call that computes dq, dk and dv together).
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True)
+
+    sdpa_fwd_ms = kernel_ms(lambda q, k, v, *_: sdpa(q, k, v), sets, 50)
+    graphs = []
+    for q, k, v, g, *_ in sets:
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        graphs.append((sdpa(*leaves), leaves, g.transpose(1, 2)))
+    sdpa_bwd_ms = kernel_ms(
+        lambda o, leaves, g: torch.autograd.grad(o, leaves, g,
+                                                 retain_graph=True),
+        graphs, 50)
+    del graphs
+    rows = {}
+    for name, (fn, plain) in fns.items():
+        ms = kernel_ms(fn, sets, 50)
+        plain_ms = kernel_ms(plain, sets, 4)
+        bound_ms, bound_by = bound(*work[name], dtype)
+        lib = sdpa_fwd_ms if name == "flash_fwd" else sdpa_bwd_ms
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=lib)
+        n_bytes, n_ops = work[name]
+        print(f"{name} b={b} s={s} h={h} d={d} {dtype} causal: kernel "
+              f"{ms * 1e3!r} us, plain {plain_ms * 1e3!r} us, sdpa "
+              f"{'forward' if name == 'flash_fwd' else 'backward (dq, dk, dv)'}"
+              f" {lib * 1e3!r} us; bound {bound_ms * 1e3!r} us by "
+              f"{bound_by} ({n_ops} operations, {n_bytes} bytes); "
+              f"{n_ops / ms / 1e9!r} TFLOP/s  [{card}]")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -92,6 +500,8 @@ def main() -> int:
     from mpi_tpu_torch.ops.decode_attention import (
         flash_decode_attention, flash_decode_attention_plain, kernel_tile)
     from mpi_tpu_torch.serve import flagship_config
+    from mpi_tpu_torch.train import (flagship_train_config, peak_bf16_tflops,
+                                     train_flops_per_step)
     from mpi_tpu_torch.utils.platform import resolve_device
 
     # ---- 1. device and build ------------------------------------------
@@ -103,11 +513,13 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"build: {built} in {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_log("decode_attention").splitlines():
-        if "Compiling entry" in line or "Used" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    for name in ("decode_attention", "flash_attention"):
+        for line in _build.build_log(name).splitlines():
+            if "Compiling entry" in line or "Used" in line or \
+                    "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
 
-    # ---- 2. kernel against plain --------------------------------------
+    # ---- 2. kernels against plain -------------------------------------
     gen = torch.Generator(device=dev).manual_seed(1234)
     shapes = [  # (b, h, kv, hd, t)
         (8, 8, 8, 128, 256),   # flagship MHA
@@ -153,10 +565,11 @@ def main() -> int:
                           f"empty live prefix not zero/-1e30 at {where}")
                 max_err = max(max_err, err)
                 n_cmp += 1
-    print(f"kernel vs plain: {n_cmp} cases pass, max |out err| {max_err!r} "
-          f"(tolerances {KERNEL_TOL})")
+    print(f"decode kernel vs plain: {n_cmp} cases pass, max |out err| "
+          f"{max_err!r} (tolerances {KERNEL_TOL})")
+    flash_err = check_flash_kernels(dev, gen)
 
-    # ---- 3. the slice: serve the flagship through generate -------------
+    # ---- 3. serving: the flagship through generate ---------------------
     cfg = flagship_config()
     steps = NEW_TOKENS - 1  # the first new token comes from the prefill
     hgen = torch.Generator().manual_seed(0)
@@ -221,7 +634,24 @@ def main() -> int:
     print(f"int8 weights: tokens in vocab; agreement with bf16 greedy "
           f"{float((qtoks == outs[0]).float().mean())!r}")
 
-    # ---- 4. times -------------------------------------------------------
+    # ---- 4. training: the flagship through make_train_step ------------
+    train_launches, step_ms = train_slice(dev)
+    flash_vs_dense(dev)
+    torch.cuda.empty_cache()
+
+    # ---- 5. times -------------------------------------------------------
+    tcfg = flagship_train_config()
+    train_tok = 8 * 1024
+    tflops = train_flops_per_step(tcfg, 8, 1024) / step_ms / 1e9
+    peak = peak_bf16_tflops(torch.cuda.get_device_name(0))
+    mfu = None if peak is None else tflops / peak
+    print(f"train step bf16, flash kernels: {step_ms!r} ms per step (CUDA "
+          f"events over {TRAIN_STEPS - 1} steps after a warm-up), "
+          f"{train_tok / step_ms * 1e3!r} tokens/s, {tflops!r} model TFLOP/s, "
+          f"MFU {mfu!r} against {peak} TFLOP/s dense bf16  [{card}]")
+    train_profile(dev, card, step_ms)
+    torch.cuda.empty_cache()
+
     def gen_ms(p, c, reps=3):
         generate(p, prompts[1], c, NEW_TOKENS)  # warm-up
         start = torch.cuda.Event(enable_timing=True)
@@ -242,32 +672,7 @@ def main() -> int:
         ms = gen_ms(p, c)
         print(f"{label}: {ms!r} ms per request, {ms / NEW_TOKENS!r} ms per "
               f"generated token, {n_gen / ms * 1e3!r} tok/s  [{card}]")
-    del qparams
-
-    def kernel_ms(fn, sets, reps):
-        for args in sets[:2]:
-            fn(*args)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        # Hold the stream busy while the host enqueues the launches, so
-        # the events time the launches back to back on the card and not
-        # the Python that issues them.
-        sleep = torch.cuda.Event(enable_timing=True)
-        sleep.record()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        t_host = time.perf_counter()
-        for i in range(reps):
-            fn(*sets[i % len(sets)])
-        t_host = (time.perf_counter() - t_host) * 1e3
-        end.record()
-        torch.cuda.synchronize()
-        check(sleep.elapsed_time(start) > t_host,
-              f"host enqueue ({t_host} ms) outlasted the busy stream "
-              f"({sleep.elapsed_time(start)} ms): the timing would be the "
-              f"host's")
-        return start.elapsed_time(end) / reps
+    del qparams, params
 
     # The flagship's decode shape. Twelve sets of inputs (96 MB) cycle so
     # each launch finds its K/V outside the 50 MB L2, as a decode step
@@ -296,37 +701,41 @@ def main() -> int:
                 v[:, :n_live].transpose(1, 2), enable_gqa=kv != h),
             sets, 64)
         kv_bytes = 2 * b * n_live * kv * hd * elt
-        n_bytes = kv_bytes + 2 * b * h * hd * elt + 4 * b * h
-        n_ops = 4 * b * h * n_live * hd
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = n_ops / PEAK_FLOPS[str(dtype)] * 1e3
+        bound_ms, bound_by = bound(kv_bytes + 2 * b * h * hd * elt +
+                                   4 * b * h, 4 * b * h * n_live * hd, dtype)
         rows[n_valid] = dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
-                             bound_ms=max(t_bytes, t_ops),
-                             bound_by="bytes" if t_bytes >= t_ops
-                             else "operations")
+                             bound_ms=bound_ms, bound_by=bound_by)
         print(f"decode kernel b={b} h={h} kv={kv} hd={hd} t={t} {dtype} "
               f"n_valid={n_valid}: kernel {ms * 1e3!r} us, plain "
               f"{plain_ms * 1e3!r} us, sdpa {sdpa_ms * 1e3!r} us; bound "
-              f"{rows[n_valid]['bound_ms'] * 1e3!r} us by "
-              f"{rows[n_valid]['bound_by']} (live K+V {kv_bytes} B / "
-              f"{HBM_BYTES_PER_S:.3g} B/s = "
+              f"{bound_ms * 1e3!r} us by {bound_by} (live K+V {kv_bytes} "
+              f"B / {HBM_BYTES_PER_S:.3g} B/s = "
               f"{kv_bytes / HBM_BYTES_PER_S * 1e6!r} us)  [{card}]")
+    del sets
+    flash_rows = flash_times(dev, gen, card)
 
-    # ---- 5. result ------------------------------------------------------
-    r = rows[t - 1]
-    kernels = [{
+    # ---- 6. result ------------------------------------------------------
+    source = "mpi_tpu_torch/ops/csrc/flash_attention.cu"
+    kernels = []
+    for name, replaces, n in zip(
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+            ("mpi_tpu/ops/attention.py:174", "mpi_tpu/ops/attention.py:231",
+             "mpi_tpu/ops/attention.py:270"), train_launches):
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": n,
+                        "max_abs_err": flash_err[name], **flash_rows[name]})
+    kernels.append({
         "name": "flash_decode_attention",
         "route": "cuda",
         "source": "mpi_tpu_torch/ops/csrc/decode_attention.cu",
         "replaces": "mpi_tpu/ops/decode_attention.py:58",
         "launches": main_launches,
         "max_abs_err": max_err,
-        "ms": r["ms"],
-        "plain_ms": r["plain_ms"],
-        "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"],
-        "library_ms": r["library_ms"],
-    }]
+        **rows[t - 1],
+    })
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels = [{key: row[key] for key in keys} for row in kernels]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,10 +6,14 @@ Pallas for the TPU is a CUDA C++ kernel for ``sm_90a`` here
 (``ops/csrc/``), built at first use. The port imports neither ``jax`` nor
 ``mpi_tpu``: it keeps its own copy of what it needs.
 
-Ported so far: the serving path of the flagship decoder LM — KV-cache
-``generate`` (``models/``) over the flash-decode kernel
-(``ops/decode_attention.py``). Entry points run on the CUDA device unless
-the caller passes ``device="cpu"``.
+Ported so far, for the flagship decoder LM (``models/``):
+- serving: KV-cache ``generate`` over the flash-decode kernel
+  (``ops/decode_attention.py``; ``python -m mpi_tpu_torch.serve``);
+- training: one AdamW step on one device, with attention in the flash
+  forward and FA-2 backward kernels (``ops/attention.py``;
+  ``python -m mpi_tpu_torch.train``).
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``.
 """
 
 import torch  # noqa: F401  (the port's one framework)

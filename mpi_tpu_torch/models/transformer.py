@@ -1,32 +1,36 @@
-"""Decoder-only Transformer LM, single-device inference half.
+"""Decoder-only Transformer LM on one device: forward, loss and training.
 
 Counterpart of ``mpi_tpu/models/transformer.py``: the config, the parameter
-tree, and the forward pass on one device. The parameter tree and the einsum
-layouts are the JAX package's (``wq (d, h, hd)``, ``wo (h, hd, d)``, ...),
-so the JAX tree loads as it is (:mod:`.convert`) and the two compute the
-same thing. Sharding, the training step and the Mixture-of-Experts FFN
-belong to later slices of the port.
+tree, the forward pass, the next-token loss and one AdamW training step on
+one device. The parameter tree and the einsum layouts are the JAX
+package's (``wq (d, h, hd)``, ``wo (h, hd, d)``, ...), so the JAX tree
+loads as it is (:mod:`.convert`) and the two compute the same thing.
+``attention_impl="flash"`` runs the flash-attention kernels
+(:mod:`..ops.attention`). Sharding, the other optimizers and schedules and
+the Mixture-of-Experts FFN belong to later slices of the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import dense_attention
+from ..ops.attention import dense_attention, flash_attention
 from ..utils.platform import resolve_device
 
-__all__ = ["TransformerConfig", "init_params", "forward", "apply_rope",
-           "block_body"]
+__all__ = ["TransformerConfig", "init_params", "forward", "forward_with_aux",
+           "apply_rope", "block_body", "token_xent", "loss_fn",
+           "make_optimizer", "make_train_parts", "make_train_step"]
 
 # attention_impl values of the JAX package that later slices port.
 _LATER_IMPLS = {
-    "flash": "the training slice (flash forward and backward kernels)",
-    "blockwise": "the training slice",
+    "blockwise": "the long-context slice (with the online-softmax fold "
+                 "that ring attention shares)",
     "ring": "the long-context slice", "ring_flash": "the long-context slice",
     "zigzag": "the long-context slice",
     "zigzag_flash": "the long-context slice",
@@ -38,8 +42,9 @@ _LATER_IMPLS = {
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Same fields and defaults as the JAX package's config, with torch
-    dtypes. ``attention_impl`` is the full-sequence attention (only
-    ``"dense"`` so far); ``decode_attention`` is the single-token decode
+    dtypes. ``attention_impl`` is the full-sequence attention: ``"dense"``
+    (the oracle) or ``"flash"`` (the flash-attention kernels, forward and
+    backward); ``decode_attention`` is the single-token decode
     step's: ``"dense"`` (einsum chain, the oracle) or ``"flash"`` (the
     flash-decode kernel). Prefill always takes the dense cached path."""
 
@@ -187,10 +192,15 @@ def _attention(x, blk, cfg: TransformerConfig):
         raise NotImplementedError(
             f"mpi_tpu_torch: attention_impl={impl!r} is not ported yet; it "
             f"comes with {_LATER_IMPLS[impl]}")
-    if impl != "dense":
+    if impl == "flash":
+        # The kernels read grouped kv heads natively: no repeat.
+        ctx = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              cfg.causal)
+    elif impl == "dense":
+        k, v = repeat_kv_heads(k, v, cfg)
+        ctx = dense_attention(q, k, v, causal=cfg.causal)
+    else:
         raise ValueError(f"mpi_tpu_torch: unknown attention_impl {impl!r}")
-    k, v = repeat_kv_heads(k, v, cfg)
-    ctx = dense_attention(q, k, v, causal=cfg.causal)
     return torch.einsum("bshk,hkd->bsd", ctx, blk["wo"].to(x.dtype))
 
 
@@ -215,17 +225,179 @@ def block_body(x, blk, cfg: TransformerConfig):
     return x + _ffn(h, blk, cfg)
 
 
-def forward(params: Dict[str, Any], tokens: torch.Tensor,
-            cfg: TransformerConfig) -> torch.Tensor:
-    """tokens (batch, seq) → logits (batch, seq, vocab), on the device the
-    parameters lie on."""
+def forward_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
+                     cfg: TransformerConfig
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (batch, seq) → (logits (batch, seq, vocab), aux loss), on the
+    device the parameters lie on. The aux loss is the MoE load-balance
+    penalty, 0 for the dense FFN (the only one ported). With
+    ``cfg.remat`` each block is recomputed in the backward pass
+    (``torch.utils.checkpoint``, where JAX has ``jax.checkpoint``)."""
     s = tokens.shape[1]
     tokens = tokens.long()
     x = params["embed"].to(cfg.dtype)[tokens]
     if not cfg.rope:
         x = x + params["pos"].to(cfg.dtype)[:s][None]
     for blk in params["blocks"]:
-        x = block_body(x, blk, cfg)
+        if cfg.remat:
+            x = checkpoint(block_body, x, blk, cfg, use_reentrant=False)
+        else:
+            x = block_body(x, blk, cfg)
     x = _layernorm(x, params["final_ln"]["scale"].to(x.dtype),
                    params["final_ln"]["bias"].to(x.dtype))
-    return torch.einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
+    logits = torch.einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward(params: Dict[str, Any], tokens: torch.Tensor,
+            cfg: TransformerConfig) -> torch.Tensor:
+    """tokens (batch, seq) → logits (batch, seq, vocab), on the device the
+    parameters lie on."""
+    return forward_with_aux(params, tokens, cfg)[0]
+
+
+def token_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy as ``logsumexp − target_logit`` in
+    float32: the (b, s, vocab) log-softmax is never materialised."""
+    logits32 = logits.float()
+    lse = torch.logsumexp(logits32, dim=-1)
+    tgt = torch.gather(logits32, -1, targets.long()[..., None])[..., 0]
+    return (lse - tgt).mean()
+
+
+def loss_fn(params: Dict[str, Any], tokens: torch.Tensor,
+            cfg: TransformerConfig) -> torch.Tensor:
+    """Next-token cross-entropy of ``tokens`` (batch, seq + 1), mean over
+    every predicted position, plus ``moe_aux_coef`` times the aux loss."""
+    logits, aux = forward_with_aux(params, tokens[:, :-1], cfg)
+    return token_xent(logits, tokens[:, 1:]) + cfg.moe_aux_coef * aux
+
+
+# --------------------------------------------------------------------------
+# Training step
+# --------------------------------------------------------------------------
+
+# What a later slice of the port brings, for each option it refuses now.
+_OPTIMIZER_SLICE = "the optimizer slice (optax's rules, ported)"
+_SHARDED_SLICE = "the sharded-training slice"
+
+
+def make_optimizer(optimizer: str = "adamw", learning_rate: float = 1e-3,
+                   warmup_steps: int = 0, total_steps: Optional[int] = None
+                   ) -> Callable[[List[torch.Tensor]], torch.optim.Optimizer]:
+    """A builder ``leaves -> torch.optim.Optimizer`` for ``optimizer``.
+
+    Only ``"adamw"`` at a constant ``learning_rate`` is ported: the rule of
+    ``optax.adamw``'s defaults (b1 0.9, b2 0.999, eps 1e-8, weight decay
+    1e-4 on every leaf; torch's own default decay is 1e-2). adafactor, sgd
+    and the warmup / cosine schedules raise ``NotImplementedError``."""
+    if optimizer in ("adafactor", "sgd"):
+        raise NotImplementedError(
+            f"mpi_tpu_torch: optimizer={optimizer!r} is not ported yet; it "
+            f"comes with {_OPTIMIZER_SLICE}")
+    if optimizer != "adamw":
+        raise ValueError(f"mpi_tpu_torch: unknown optimizer {optimizer!r}: "
+                         f"expected adamw|adafactor|sgd")
+    if warmup_steps or total_steps is not None:
+        raise NotImplementedError(
+            f"mpi_tpu_torch: learning-rate schedules (warmup_steps, "
+            f"total_steps) are not ported yet; they come with "
+            f"{_OPTIMIZER_SLICE}")
+
+    def build(leaves: List[torch.Tensor]) -> torch.optim.Optimizer:
+        return torch.optim.AdamW(leaves, lr=learning_rate,
+                                 betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=1e-4)
+
+    return build
+
+
+def _leaves(tree: Any) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [x for key in tree for x in _leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [x for node in tree for x in _leaves(node)]
+    return [tree]
+
+
+def make_train_parts(cfg: TransformerConfig, mesh: Any = None,
+                     learning_rate: float = 1e-3, grad_accum: int = 1,
+                     optimizer: str = "adamw", warmup_steps: int = 0,
+                     total_steps: Optional[int] = None,
+                     zero1: bool = False, fsdp: bool = False):
+    """Build ``(init_state, step)`` for one device.
+
+    ``init_state(generator, device=None)`` draws fresh parameters
+    (:func:`init_params`, float32 masters at ``cfg.param_dtype`` on the
+    CUDA device unless ``device`` names another) and returns
+    ``{"params", "opt"}``; ``init_state.from_params(params)`` builds the
+    state around a given tree instead (from :func:`params_from_jax`, say),
+    taking its tensors as they are. ``step(state, tokens) -> (state,
+    loss)`` runs one optimizer step on ``tokens`` (batch, seq + 1) and
+    updates the state in place (the JAX step returns a new state and
+    donates the old); ``loss`` is a 0-dim float32 tensor on the device.
+
+    ``grad_accum=k`` averages the gradients of ``k`` microbatches before
+    one update; the batch must divide by ``k``. The optimizer options are
+    :func:`make_optimizer`'s. A mesh, ``zero1`` and ``fsdp`` raise
+    ``NotImplementedError``."""
+    if grad_accum < 1:
+        raise ValueError(f"mpi_tpu_torch: grad_accum must be >= 1, got "
+                         f"{grad_accum}")
+    for name, on in (("a mesh", mesh is not None), ("zero1", zero1),
+                     ("fsdp", fsdp)):
+        if on:
+            raise NotImplementedError(
+                f"mpi_tpu_torch: {name} is not ported yet; it comes with "
+                f"{_SHARDED_SLICE}")
+    build = make_optimizer(optimizer, learning_rate, warmup_steps,
+                           total_steps)
+
+    def from_params(params: Dict[str, Any]) -> Dict[str, Any]:
+        leaves = _leaves(params)
+        for x in leaves:
+            if not x.is_floating_point():
+                raise TypeError(f"mpi_tpu_torch: cannot train a "
+                                f"{x.dtype} parameter")
+            x.requires_grad_(True)
+        return {"params": params, "opt": build(leaves)}
+
+    def init_state(generator: torch.Generator,
+                   device: Optional[Union[str, torch.device]] = None
+                   ) -> Dict[str, Any]:
+        return from_params(init_params(cfg, generator, device))
+
+    init_state.from_params = from_params
+
+    def step(state: Dict[str, Any], tokens: torch.Tensor
+             ) -> Tuple[Dict[str, Any], torch.Tensor]:
+        params, opt = state["params"], state["opt"]
+        b = tokens.shape[0]
+        if b % grad_accum:
+            raise ValueError(f"mpi_tpu_torch: batch {b} not divisible by "
+                             f"grad_accum={grad_accum}")
+        tokens = tokens.to(params["embed"].device)
+        opt.zero_grad(set_to_none=True)
+        loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        for micro in tokens.chunk(grad_accum):
+            micro_loss = loss_fn(params, micro, cfg) / grad_accum
+            micro_loss.backward()
+            loss += micro_loss.detach()
+        opt.step()
+        return state, loss
+
+    return init_state, step
+
+
+def make_train_step(cfg: TransformerConfig, mesh: Any = None,
+                    learning_rate: float = 1e-3, grad_accum: int = 1,
+                    optimizer: str = "adamw", warmup_steps: int = 0,
+                    total_steps: Optional[int] = None,
+                    zero1: bool = False, fsdp: bool = False):
+    """``(init_state, step)`` as :func:`make_train_parts` builds them. The
+    JAX package jits its step here; the port runs eagerly, so the two
+    names give the same step."""
+    return make_train_parts(cfg, mesh=mesh, learning_rate=learning_rate,
+                            grad_accum=grad_accum, optimizer=optimizer,
+                            warmup_steps=warmup_steps,
+                            total_steps=total_steps, zero1=zero1, fsdp=fsdp)

@@ -188,10 +188,20 @@ def test_unknown_decode_attention_raises(models):
 
 
 def test_flash_attention_impl_is_not_ported_yet(models):
-    _, _, _, tp = models["mha"]
-    tcfg = TransformerConfig(**{**BASE, "attention_impl": "flash"})
-    with pytest.raises(NotImplementedError, match="training slice"):
-        forward(tp, _t(_tokens(s=4)), tcfg)
+    """``attention_impl="flash"`` runs the flash path and gives the JAX
+    forward's logits; the full-sequence impls still to port raise,
+    naming the slice that brings them."""
+    _, jp, _, tp = models["mha"]
+    toks = _tokens(s=8)
+    kw = {**BASE, "attention_impl": "flash"}
+    want = np.asarray(jax_forward(jp, jnp.asarray(toks), JaxConfig(**kw)))
+    np.testing.assert_allclose(
+        forward(tp, _t(toks), TransformerConfig(**kw)).numpy(), want,
+        **LOGITS)
+    for impl in ("blockwise", "ring"):
+        tcfg = TransformerConfig(**{**BASE, "attention_impl": impl})
+        with pytest.raises(NotImplementedError, match="long-context slice"):
+            forward(tp, _t(_tokens(s=4)), tcfg)
 
 
 def test_params_from_jax_rejects_a_mismatched_config(models):

@@ -3,8 +3,9 @@
 * The port imports neither ``jax`` nor the JAX package ``mpi_tpu``.
 * Entry points run on the CUDA device unless the caller names another: with
   CUDA absent and no device given they raise instead of using the CPU.
-* The decode wrapper takes the plain path only for CPU tensors; any other
-  device raises instead of falling back.
+* The decode and flash wrappers take the plain path only for CPU tensors;
+  any other device raises instead of falling back, and a CPU call counts
+  no kernel launch.
 * A missing CUDA compiler is an error, never a stub.
 """
 
@@ -16,8 +17,12 @@ from pathlib import Path
 import pytest
 import torch
 
-from mpi_tpu_torch.models import TransformerConfig, generate, init_params
+from mpi_tpu_torch import train
+from mpi_tpu_torch.models import (TransformerConfig, generate, init_params,
+                                  make_train_step)
 from mpi_tpu_torch.ops import _build
+from mpi_tpu_torch.ops.attention import (flash_attention, flash_bwd_dkv,
+                                         flash_bwd_dq, flash_fwd)
 from mpi_tpu_torch.ops.decode_attention import flash_decode_attention
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -32,7 +37,7 @@ FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)|\bmpi_tpu\.|"
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, mpi_tpu_torch, mpi_tpu_torch.models, "
-            "mpi_tpu_torch.serve\n"
+            "mpi_tpu_torch.serve, mpi_tpu_torch.train\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mpi_tpu'))\n"
             "print(bad)\n"
@@ -59,8 +64,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         generate(params, prompt, CFG, 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params(CFG, torch.Generator().manual_seed(0))
+    init_state, _ = make_train_step(CFG)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_state(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--layers", "1", "--seq", "8", "--batch", "1",
+                    "--steps", "2"])
     # Asking for the CPU by name is the one way onto it.
     assert generate(params, prompt, CFG, 2, device="cpu").shape == (1, 2)
+    assert set(init_state(torch.Generator().manual_seed(0),
+                          device="cpu")) == {"params", "opt"}
 
 
 def test_generate_refuses_params_on_another_device():
@@ -83,6 +96,26 @@ def test_cpu_calls_are_not_counted_as_kernel_launches():
     k = torch.randn(1, 8, 4, 32)
     flash_decode_attention(q, k, k, 3)
     assert flash_decode_attention.launches == before
+
+
+def test_flash_wrappers_never_fall_back_off_the_cpu():
+    q = torch.empty((1, 8, 4, 64), device="meta")
+    rows = torch.empty((1, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="cuda .kernel. or cpu"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="cuda .kernel. or cpu"):
+        flash_bwd_dq(q, q, q, q, rows, rows)
+    with pytest.raises(ValueError, match="cuda .kernel. or cpu"):
+        flash_bwd_dkv(q, q, q, q, rows, rows)
+
+
+def test_cpu_flash_calls_are_not_counted_as_kernel_launches():
+    wrappers = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+    before = [w.launches for w in wrappers]
+    q = torch.randn(1, 8, 4, 64, requires_grad=True)
+    flash_attention(q, q, q).sum().backward()
+    assert q.grad is not None
+    assert [w.launches for w in wrappers] == before
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
