@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments::
 
 It builds the port's CUDA kernels from ``mpi_tpu_torch/ops/csrc``, holds
 each kernel against its plain PyTorch version on the card, drives the
-port's two paths and checks what comes out:
+port's three paths and checks what comes out:
 
 * serving: the flagship decoder LM through ``generate`` (the
   flash-decode kernel);
@@ -15,6 +15,11 @@ port's two paths and checks what comes out:
   through ``make_train_step`` (the flash forward and the two FA-2 backward
   kernels), one more with ``remat`` and one with ``grad_accum=2``, and one
   float32 step with flash attention against dense attention;
+* the device collective layer: 8 ranks on the card, as on the 8 cards of
+  an HGX H100 node, all-reduce the flagship's whole gradient (float32 and
+  bf16), all-gather its bf16 parameters from eighths, and hand a bf16
+  activation around the ring and along a partial pattern (the ring
+  all-reduce, ring all-gather and send/receive kernels);
 
 then times the paths and the kernels, and prints:
 
@@ -75,6 +80,14 @@ TRAIN_GRAD_REL = 1e-3
 # remat recomputes the same forward: the loss of its first step must equal
 # the plain step's to rounding.
 REMAT_LOSS_RTOL = 1e-5
+# Ring collectives against their plain versions: tolerance 0 (the same hops
+# in the same order, rounded at each hop). The float32 ring all-reduce
+# against contribs.sum(0): each is a sum of the n contributions in some
+# order, within (n - 1) u sum|x_i| of the exact sum (u = 2**-24), so they
+# differ by at most 2 (n - 1) u sum|x_i|; the check allows 2 n u sum|x_i|
+# for the second-order terms.
+RING_RANKS = 8
+RING_SUM_TOL_U = 2 * RING_RANKS
 
 # About 100 ms of GPU clock cycles: longer than the host takes to enqueue
 # one timed run of launches (checked: the run fails if it is not). Each
@@ -180,6 +193,7 @@ def check_flash_kernels(dev, gen):
         (4, 1000, 1000, 8, 8, 128, True),   # no multiple of any tile
         (4, 512, 512, 16, 4, 64, True),     # head_dim 64
         (4, 512, 768, 8, 2, 128, False),    # s != t: a ring chunk
+        (8193, 64, 64, 8, 8, 64, True),     # b * h = 65544 > grid y's 65535
     ]
     worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     n_cmp = 0
@@ -484,6 +498,249 @@ def flash_times(dev, gen, card):
     return rows
 
 
+def bits_equal(a, b) -> bool:
+    """Bitwise equal, NaNs compared by position (a bf16 NaN's payload is
+    the kernel's rounding instruction's in one and PyTorch's in the
+    other)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    if a.is_floating_point():
+        nan = torch.isnan(a)
+        if bool(nan.any()) or bool(torch.isnan(b).any()):
+            if not torch.equal(nan, torch.isnan(b)):
+                return False
+            a, b = a.masked_fill(nan, 0), b.masked_fill(nan, 0)
+    return torch.equal(a.view(ints), b.view(ints))
+
+
+def max_abs_diff(a, b) -> float:
+    """max |a - b| in float32, NaN against NaN counted as 0."""
+    return (a.float() - b.float()).abs_().nan_to_num_(0.0).max().item()
+
+
+def check_ring_kernels(dev, gen):
+    """Kernels 5-7 against their plain versions on the card, bitwise, on
+    the cases of tests/test_torch_ring_kernel.py. Returns the largest
+    |kernel - plain| of each kernel over every case."""
+    import torch
+
+    from mpi_tpu_torch.ops.ring_collectives import (
+        ring_allgather, ring_allgather_plain, ring_allreduce,
+        ring_allreduce_plain, ring_allreduce_sharded)
+    from mpi_tpu_torch.parallel import make_mesh, sendrecv, sendrecv_plain
+
+    worst = {"ring_allreduce": 0.0, "ring_allgather": 0.0, "sendrecv": 0.0}
+    n_cmp = 0
+
+    def agree(got, want, where):
+        nonlocal n_cmp
+        torch.cuda.synchronize()
+        check(bits_equal(got, want), f"{where}: kernel differs from plain")
+        kernel = where.split()[0].replace("_sharded", "")
+        worst[kernel] = max(worst[kernel], max_abs_diff(got, want))
+        n_cmp += 1
+
+    def contribs(n, rows, inner, op, dtype):
+        if op == "prod":  # keep the product of n factors in range
+            x = torch.rand(n, rows, inner, generator=gen, device=dev) + 0.5
+        else:
+            x = torch.randn(n, rows, inner, generator=gen, device=dev)
+        return x.to(dtype)
+
+    floats = (torch.float32, torch.bfloat16)
+    for n in (2, 4, 8):
+        mesh = make_mesh(devices=[dev] * n)
+        # (rows, inner) (2, 3): element-wide path; (512, 8): 16-byte path.
+        for dtype in floats:
+            for rows, inner in ((2, 3), (512, 8)):
+                for op in ("sum", "max", "min", "prod"):
+                    x = contribs(n, rows * n, inner, op, dtype)
+                    agree(ring_allreduce(x, mesh, op),
+                          ring_allreduce_plain(x, op),
+                          f"ring_allreduce n={n} {op} {dtype} "
+                          f"{tuple(x.shape)}")
+        for dtype in (*floats, torch.float16, torch.int32):
+            for rows, inner in ((3, 2), (1024, 8)):
+                x = (torch.randn(rows * n, inner, generator=gen, device=dev)
+                     * 100).to(dtype)
+                agree(ring_allgather(x, mesh), ring_allgather_plain(x, n),
+                      f"ring_allgather n={n} {dtype} {tuple(x.shape)}")
+    mesh = make_mesh(devices=[dev] * 4)
+    for dtype in floats:
+        x = contribs(4, 5, 3, "sum", dtype)  # m = 5 pads to 8
+        agree(ring_allreduce_sharded(x, mesh),
+              ring_allreduce_plain(torch.cat([x, x.new_zeros(4, 3, 3)],
+                                             dim=1))[0, :5],
+              f"ring_allreduce_sharded padding {dtype}")
+        for op in ("max", "min"):
+            x = contribs(4, 8, 3, op, dtype)
+            x[2, 3, 1] = float("nan")
+            got = ring_allreduce(x, mesh, op)
+            check(bool(torch.isnan(got[:, 3, 1]).all()),
+                  f"ring_allreduce {op} {dtype} lost a NaN")
+            agree(got, ring_allreduce_plain(x, op),
+                  f"ring_allreduce {op} {dtype} with a NaN")
+    n = RING_RANKS
+    mesh = make_mesh(devices=[dev] * n)
+    patterns = {"ring": [(r, (r + 1) % n) for r in range(n)],
+                "reverse ring": [(r, (r - 1) % n) for r in range(n)],
+                "partial": [(0, 4), (4, 0), (2, 3)],
+                "self pair": [(1, 1), (0, 5), (5, 0), (6, 7)]}
+    for name, perm in patterns.items():
+        for dtype in floats:
+            for block in ((8, 128), (3, 5)):
+                x = torch.randn(n, *block, generator=gen,
+                                device=dev).to(dtype)
+                agree(sendrecv(x, mesh, perm), sendrecv_plain(x, perm),
+                      f"sendrecv {name} {dtype} {tuple(x.shape)}")
+    print(f"ring kernels vs plain: {n_cmp} cases bitwise equal (all-reduce "
+          f"n 2/4/8 x sum/max/min/prod x float32/bf16 x 2 layouts, padding, "
+          f"NaN; all-gather x 4 dtypes; send/receive x 4 patterns); max "
+          f"|err| {worst}")
+    return worst
+
+
+def ring_slice(dev, card):
+    """The device collective layer at full size: 8 ranks on the card
+    all-reduce the flagship's whole gradient (float32, then bf16),
+    all-gather its bf16 parameters from eighths, and hand a bf16 activation
+    of (8, 1024, 1024) per rank around the ring and along a partial pattern.
+    Checks every result, then times each kernel beside its bound, its plain
+    version and one PyTorch call. Returns ({kernel: launches}, {kernel:
+    row}, {kernel: max |kernel - plain|})."""
+    import torch
+
+    from mpi_tpu_torch.models import init_params
+    from mpi_tpu_torch.models.transformer import _leaves
+    from mpi_tpu_torch.ops.ring_collectives import (
+        ring_allgather, ring_allgather_plain, ring_allreduce,
+        ring_allreduce_plain)
+    from mpi_tpu_torch.parallel import (exchange_sharded, make_mesh,
+                                        sendrecv, sendrecv_plain,
+                                        sendrecv_sharded)
+    from mpi_tpu_torch.train import flagship_train_config
+
+    n = RING_RANKS
+    mesh = make_mesh(devices=[dev] * n)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    leaves = _leaves(init_params(flagship_train_config(), gen, dev))
+    m = sum(x.numel() for x in leaves)  # values of the flattened gradient
+    del leaves
+    grads32 = torch.randn(n, m, generator=gen, device=dev)
+    grads16 = torch.randn(n, m, generator=gen, device=dev).to(torch.bfloat16)
+    shards = torch.randn(m, generator=gen, device=dev).to(torch.bfloat16)
+    acts = torch.randn(n * 8, 1024, 1024, generator=gen,
+                       device=dev).to(torch.bfloat16)
+    ring = [(r, (r + 1) % n) for r in range(n)]
+    partial = [(0, 4), (4, 0), (2, 3)]
+
+    wrappers = {"ring_allreduce": ring_allreduce,
+                "ring_allgather": ring_allgather, "sendrecv": sendrecv}
+    for w in wrappers.values():
+        w.launches = 0
+    red32 = ring_allreduce(grads32, mesh)
+    red16 = ring_allreduce(grads16, mesh)
+    gathered = ring_allgather(shards, mesh)
+    hand_ring = sendrecv_sharded(acts, mesh, ring)
+    hand_partial = sendrecv_sharded(acts, mesh, partial)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    check(launches == {"ring_allreduce": 2, "ring_allgather": 1,
+                       "sendrecv": 2},
+          f"collective launches {launches}: want one per collective")
+
+    errs = {}
+
+    def agree(name, got, want, what):
+        check(bits_equal(got, want), f"{what} differs from its plain version")
+        errs[name] = max(errs.get(name, 0.0), max_abs_diff(got, want))
+
+    for red, x in ((red32, grads32), (red16, grads16)):
+        agree("ring_allreduce", red, ring_allreduce_plain(x),
+              f"ring all-reduce {x.dtype}")
+        check(bits_equal(red, red[:1].expand_as(red)),
+              f"ring all-reduce {x.dtype}: ranks hold different results")
+    ref = grads32.sum(0)
+    tol = RING_SUM_TOL_U * 2.0 ** -24 * grads32.abs().sum(0)
+    diff = (red32[0] - ref).abs()
+    check(bool(torch.isfinite(red32).all()) and bool((diff <= tol).all()),
+          f"float32 ring all-reduce vs sum(0): worst |diff| / tol "
+          f"{(diff / tol).max().item()}")
+    worst = (diff / tol).max().item()
+    del ref, tol, diff
+    agree("ring_allgather", gathered, ring_allgather_plain(shards, n),
+          "ring all-gather")
+    check(all(bits_equal(gathered[r], shards) for r in range(n)),
+          "ring all-gather: a rank's copy is not the parameters")
+    blocks = acts.reshape(n, -1)
+    for hand, perm in ((hand_ring, ring), (hand_partial, partial)):
+        agree("sendrecv", hand.reshape(n, -1), sendrecv_plain(blocks, perm),
+              f"sendrecv {perm}")
+        check(bits_equal(hand, exchange_sharded(acts, mesh, perm)),
+              f"sendrecv {perm} differs from exchange")
+    print(f"collectives at full size, {n} ranks on one card: all-reduce of "
+          f"{m} values per rank (the flagship's gradient) in float32 and "
+          f"bf16, all-gather of {m // n} bf16 values per rank, send/receive "
+          f"of a bf16 (8, 1024, 1024) block per rank (ring and {partial}); "
+          f"every result bitwise equal to its plain version; float32 "
+          f"all-reduce vs sum(0): worst |diff| {worst!r} of the allowed "
+          f"{RING_SUM_TOL_U} u sum|x|; max |kernel - plain| {errs}; "
+          f"launches {launches}")
+    del red32, red16, gathered, hand_ring, hand_partial
+
+    def report(name, label, ms, plain_ms, lib_ms, lib_name, least, moved,
+               n_ops, dtype):
+        bound_ms, bound_by = bound(least, n_ops, dtype)
+        print(f"{name} {label}: kernel {ms * 1e3!r} us, plain "
+              f"{plain_ms * 1e3!r} us, {lib_name} {lib_ms * 1e3!r} us; bound "
+              f"{bound_ms * 1e3!r} us by {bound_by} ({least} bytes read "
+              f"once and written once); the kernel moves {moved} bytes, "
+              f"{moved / ms / 1e9!r} TB/s  [{card}]")
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=lib_ms)
+
+    rows = {}
+    for x in (grads32, grads16):
+        e = x.element_size()
+        row = report(
+            "ring_allreduce", f"sum {n} ranks x {m} {x.dtype}",
+            kernel_ms(lambda c: ring_allreduce(c, mesh), [(x,)], 10),
+            kernel_ms(ring_allreduce_plain, [(x,)], 3),
+            kernel_ms(lambda c: torch.sum(c, 0), [(x,)], 10),
+            "torch.sum(contribs, 0)", 2 * n * m * e,
+            (2 * n + 5 * (n - 1)) * m * e, (n - 1) * m, x.dtype)
+        rows.setdefault("ring_allreduce", row)  # the float32 row
+    del grads32, grads16
+    e = shards.element_size()
+    rows["ring_allgather"] = report(
+        "ring_allgather", f"{n} ranks x {m // n} {shards.dtype}",
+        kernel_ms(lambda x: ring_allgather(x, mesh), [(shards,)], 20),
+        kernel_ms(lambda x: ring_allgather_plain(x, n), [(shards,)], 5),
+        kernel_ms(lambda x: x.repeat(n), [(shards,)], 20),
+        f"x.repeat({n})", (m + n * m) * e, 2 * n * m * e, 0, shards.dtype)
+    block = blocks[0].numel() * blocks.element_size()
+    senders = torch.tensor([(d - 1) % n for d in range(n)], device=dev)
+    rows["sendrecv"] = report(
+        "sendrecv", f"ring, {n} ranks x (8, 1024, 1024) {acts.dtype}",
+        kernel_ms(lambda x: sendrecv_sharded(x, mesh, ring), [(acts,)], 50),
+        kernel_ms(lambda x: sendrecv_plain(x.reshape(n, -1), ring),
+                  [(acts,)], 20),
+        kernel_ms(lambda x: x.reshape(n, -1).index_select(0, senders),
+                  [(acts,)], 50),
+        "index_select", 2 * n * block, 2 * n * block, 0, acts.dtype)
+    report("sendrecv", f"partial {partial}",
+           kernel_ms(lambda x: sendrecv_sharded(x, mesh, partial), [(acts,)],
+                     50),
+           kernel_ms(lambda x: sendrecv_plain(x.reshape(n, -1), partial),
+                     [(acts,)], 20),
+           float("nan"), "no library call", (len(partial) + n) * block,
+           (len(partial) + n) * block, 0, acts.dtype)
+    return launches, rows, errs
+
+
 def main() -> int:
     import torch
 
@@ -513,7 +770,8 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"build: {built} in {time.perf_counter() - t0:.1f} s")
-    for name in ("decode_attention", "flash_attention"):
+    for name in ("decode_attention", "flash_attention", "ring_collectives",
+                 "sendrecv"):
         for line in _build.build_log(name).splitlines():
             if "Compiling entry" in line or "Used" in line or \
                     "spill" in line:
@@ -568,6 +826,7 @@ def main() -> int:
     print(f"decode kernel vs plain: {n_cmp} cases pass, max |out err| "
           f"{max_err!r} (tolerances {KERNEL_TOL})")
     flash_err = check_flash_kernels(dev, gen)
+    ring_err = check_ring_kernels(dev, gen)
 
     # ---- 3. serving: the flagship through generate ---------------------
     cfg = flagship_config()
@@ -713,8 +972,13 @@ def main() -> int:
               f"{kv_bytes / HBM_BYTES_PER_S * 1e6!r} us)  [{card}]")
     del sets
     flash_rows = flash_times(dev, gen, card)
+    torch.cuda.empty_cache()
 
-    # ---- 6. result ------------------------------------------------------
+    # ---- 6. the device collective layer: 8 ranks on the card -----------
+    ring_launches, ring_rows, slice_err = ring_slice(dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- 7. result ------------------------------------------------------
     source = "mpi_tpu_torch/ops/csrc/flash_attention.cu"
     kernels = []
     for name, replaces, n in zip(
@@ -733,6 +997,18 @@ def main() -> int:
         "max_abs_err": max_err,
         **rows[t - 1],
     })
+    for name, source, replaces in (
+            ("ring_allgather", "mpi_tpu_torch/ops/csrc/ring_collectives.cu",
+             "mpi_tpu/ops/ring_collectives.py:65"),
+            ("ring_allreduce", "mpi_tpu_torch/ops/csrc/ring_collectives.cu",
+             "mpi_tpu/ops/ring_collectives.py:111"),
+            ("sendrecv", "mpi_tpu_torch/ops/csrc/sendrecv.cu",
+             "mpi_tpu/parallel/p2p.py:158")):
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces,
+                        "launches": ring_launches[name],
+                        "max_abs_err": max(ring_err[name], slice_err[name]),
+                        **ring_rows[name]})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{key: row[key] for key in keys} for row in kernels]

@@ -11,7 +11,11 @@ Ported so far, for the flagship decoder LM (``models/``):
   (``ops/decode_attention.py``; ``python -m mpi_tpu_torch.serve``);
 - training: one AdamW step on one device, with attention in the flash
   forward and FA-2 backward kernels (``ops/attention.py``;
-  ``python -m mpi_tpu_torch.train``).
+  ``python -m mpi_tpu_torch.train``);
+- the device collective layer: a rank mesh whose ranks may share one
+  device (``parallel/mesh.py``), the ring all-gather and all-reduce
+  kernels (``ops/ring_collectives.py``) and the static send/receive
+  kernel (``parallel/p2p.py``), each one launch over all ranks.
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.
 """

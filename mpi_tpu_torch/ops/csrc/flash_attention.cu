@@ -212,11 +212,11 @@ __device__ __forceinline__ int reversed_tile() {
 // stay in registers (float32) and out and lse are written once.
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int s, int t, int h, int hk,
-                 int causal, float scale) {
+__device__ __forceinline__ void
+flash_fwd_tile(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, T* __restrict__ out,
+               float* __restrict__ lse, int s, int t, int h, int hk,
+               int causal, float scale, int bh) {
   constexpr int BM = kBlockM, BN = kFwdBlockN;
   constexpr int LD = D + vec<T>(), LDP = BN + vec<T>();
   constexpr int NS = BN / 8, NO = D / 8;
@@ -227,7 +227,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* sP = sV + 2 * BN * LD;  // one 16 x BN tile per warp
 
   const int m0 = reversed_tile() * BM;
-  const int bh = blockIdx.y;
   const int bi = bh / h, hi = bh % h, kvh = hi / (h / hk);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, qd = lane % 4;
@@ -347,12 +346,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // dq += ds K accumulates in float32 registers and is written once.
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int s, int t, int h, int hk, int causal, float scale) {
+__device__ __forceinline__ void
+flash_bwd_dq_tile(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, T* __restrict__ dq, int s,
+                  int t, int h, int hk, int causal, float scale, int bh) {
   constexpr int BM = kBlockM, BN = kDqBlockN;
   constexpr int LD = D + vec<T>(), LDP = BN + vec<T>();
   constexpr int NS = BN / 8, NO = D / 8;
@@ -364,7 +363,6 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* sS = sV + 2 * BN * LD;  // one 16 x BN ds tile per warp
 
   const int m0 = reversed_tile() * BM;
-  const int bh = blockIdx.y;
   const int bi = bh / h, hi = bh % h, kvh = hi / (h / hk);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, qd = lane % 4;
@@ -462,13 +460,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // written once per kv head: no atomics.
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int s, int t, int h, int hk,
-                     int causal, float scale) {
+__device__ __forceinline__ void
+flash_bwd_dkv_tile(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, T* __restrict__ dk,
+                   T* __restrict__ dv, int s, int t, int h, int hk,
+                   int causal, float scale, int bkv) {
   constexpr int BK = kBlockM, BQ = kDkvBlockQ;
   constexpr int LD = D + vec<T>(), LDP = BQ + vec<T>();
   constexpr int NS = BQ / 8, NO = D / 8;
@@ -480,7 +478,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* sP = sO + 2 * BQ * LD;  // one 16 x BQ tile per warp
 
   const int n0 = blockIdx.x * BK;
-  const int bkv = blockIdx.y;
   const int bi = bkv / hk, kvh = bkv % hk, group = h / hk;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, qd = lane % 4;
@@ -592,7 +589,67 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- the kernels ----------------------------------------------------------
+//
+// The (batch, head) rows, b * h (b * hk for kernel 3), run on grid y, which
+// stops at 65535 where b * h need not: rows past it go on to grid z, and
+// block (x, y, z) takes row y + gridDim.y * z. The blocks of the last z
+// layer past the last row return at once. (Looping over rows with stride
+// gridDim.y inside one block instead made kernels 1 and 3 9% and 19% slower
+// at the flagship training shape on an H100 80GB HBM3 at 700 W: the loop
+// changed their register allocation.)
+
+constexpr int kMaxGridY = 65535;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, int s, int t, int h, int hk,
+                 int causal, float scale, int rows) {
+  const int bh = blockIdx.y + gridDim.y * blockIdx.z;
+  if (bh < rows) {
+    flash_fwd_tile<T, D>(q, k, v, out, lse, s, t, h, hk, causal, scale, bh);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int s, int t, int h, int hk, int causal, float scale,
+                    int rows) {
+  const int bh = blockIdx.y + gridDim.y * blockIdx.z;
+  if (bh < rows) {
+    flash_bwd_dq_tile<T, D>(q, k, v, dout, lse, delta, dq, s, t, h, hk,
+                            causal, scale, bh);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int s, int t, int h, int hk,
+                     int causal, float scale, int rows) {
+  const int bkv = blockIdx.y + gridDim.y * blockIdx.z;
+  if (bkv < rows) {
+    flash_bwd_dkv_tile<T, D>(q, k, v, dout, lse, delta, dk, dv, s, t, h, hk,
+                             causal, scale, bkv);
+  }
+}
+
 // ---- launches -------------------------------------------------------------
+
+dim3 row_grid(int tiles, int rows) {
+  const int y = rows < 1 ? 1 : (rows < kMaxGridY ? rows : kMaxGridY);
+  const int z = (rows + y - 1) / y;
+  return dim3(tiles, y, z < 1 ? 1 : z);
+}
 
 struct Args {
   const void* q;
@@ -634,11 +691,12 @@ int fwd(const Args& a) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.s + kBlockM - 1) / kBlockM, a.b * a.h);
+  const dim3 grid = row_grid((a.s + kBlockM - 1) / kBlockM, a.b * a.h);
   kern<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.o0),
-      static_cast<float*>(a.o1), a.s, a.t, a.h, a.hk, a.causal, a.scale);
+      static_cast<float*>(a.o1), a.s, a.t, a.h, a.hk, a.causal, a.scale,
+      a.b * a.h);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -649,13 +707,13 @@ int bwd_dq(const Args& a) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.s + kBlockM - 1) / kBlockM, a.b * a.h);
+  const dim3 grid = row_grid((a.s + kBlockM - 1) / kBlockM, a.b * a.h);
   kern<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse_in),
       static_cast<const float*>(a.delta), static_cast<T*>(a.o0), a.s, a.t,
-      a.h, a.hk, a.causal, a.scale);
+      a.h, a.hk, a.causal, a.scale, a.b * a.h);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -666,13 +724,14 @@ int bwd_dkv(const Args& a) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.t + kBlockM - 1) / kBlockM, a.b * a.hk);
+  const dim3 grid = row_grid((a.t + kBlockM - 1) / kBlockM, a.b * a.hk);
   kern<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse_in),
       static_cast<const float*>(a.delta), static_cast<T*>(a.o0),
-      static_cast<T*>(a.o1), a.s, a.t, a.h, a.hk, a.causal, a.scale);
+      static_cast<T*>(a.o1), a.s, a.t, a.h, a.hk, a.causal, a.scale,
+      a.b * a.hk);
   return static_cast<int>(cudaGetLastError());
 }
 

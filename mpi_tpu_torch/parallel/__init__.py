@@ -1,0 +1,14 @@
+"""The port's device collective layer: the rank mesh, and static
+point-to-point exchange between its ranks (counterpart of
+``mpi_tpu/parallel``; the ring collectives live in
+``mpi_tpu_torch/ops/ring_collectives.py``, as in the JAX package)."""
+
+from .mesh import (RANK_AXIS, RankMesh, describe_topology, make_mesh,
+                   make_mesh_2d, mesh_devices, rank_axis)
+from .p2p import (exchange, exchange_sharded, sendrecv, sendrecv_plain,
+                  sendrecv_sharded, tagged_exchange)
+
+__all__ = ["RANK_AXIS", "RankMesh", "rank_axis", "mesh_devices", "make_mesh",
+           "make_mesh_2d", "describe_topology", "exchange",
+           "tagged_exchange", "exchange_sharded", "sendrecv",
+           "sendrecv_sharded", "sendrecv_plain"]

@@ -43,6 +43,7 @@ def cuda():
     (1, 1000, 1000, 2, 2, 128, False),  # ragged, non-causal
     (2, 96, 160, 4, 2, 64, False),      # s != t: a ring chunk
     (1, 160, 96, 4, 4, 128, True),      # s > t, causal
+    (8193, 64, 64, 8, 8, 64, True),     # b * h = 65544 > grid y's 65535
 ])
 def test_kernels_match_plain(cuda, dtype, b, s, t, h, hk, d, causal):
     gen = torch.Generator(device=cuda).manual_seed(0)

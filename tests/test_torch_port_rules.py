@@ -3,9 +3,9 @@
 * The port imports neither ``jax`` nor the JAX package ``mpi_tpu``.
 * Entry points run on the CUDA device unless the caller names another: with
   CUDA absent and no device given they raise instead of using the CPU.
-* The decode and flash wrappers take the plain path only for CPU tensors;
-  any other device raises instead of falling back, and a CPU call counts
-  no kernel launch.
+* The decode, flash, ring and send/receive wrappers take the plain path
+  only for CPU tensors; any other device raises instead of falling back,
+  and a CPU call counts no kernel launch.
 * A missing CUDA compiler is an error, never a stub.
 """
 
@@ -24,6 +24,11 @@ from mpi_tpu_torch.ops import _build
 from mpi_tpu_torch.ops.attention import (flash_attention, flash_bwd_dkv,
                                          flash_bwd_dq, flash_fwd)
 from mpi_tpu_torch.ops.decode_attention import flash_decode_attention
+from mpi_tpu_torch.ops.ring_collectives import (ring_allgather,
+                                                ring_allgather_sharded,
+                                                ring_allreduce,
+                                                ring_allreduce_sharded)
+from mpi_tpu_torch.parallel import make_mesh, sendrecv, sendrecv_sharded
 
 ROOT = Path(__file__).resolve().parent.parent
 CFG = TransformerConfig(vocab=64, d_model=32, n_heads=4, n_layers=1,
@@ -37,7 +42,9 @@ FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)|\bmpi_tpu\.|"
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, mpi_tpu_torch, mpi_tpu_torch.models, "
-            "mpi_tpu_torch.serve, mpi_tpu_torch.train\n"
+            "mpi_tpu_torch.serve, mpi_tpu_torch.train, mpi_tpu_torch.ops, "
+            "mpi_tpu_torch.ops.ring_collectives, mpi_tpu_torch.parallel, "
+            "mpi_tpu_torch.parallel.mesh, mpi_tpu_torch.parallel.p2p\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mpi_tpu'))\n"
             "print(bad)\n"
@@ -115,6 +122,33 @@ def test_cpu_flash_calls_are_not_counted_as_kernel_launches():
     q = torch.randn(1, 8, 4, 64, requires_grad=True)
     flash_attention(q, q, q).sum().backward()
     assert q.grad is not None
+    assert [w.launches for w in wrappers] == before
+
+
+def test_collective_wrappers_never_fall_back_off_the_cpu():
+    mesh = make_mesh(devices=["meta"] * 4)
+    x = torch.empty((4, 8), device="meta")
+    calls = [lambda: ring_allreduce(x, mesh),
+             lambda: ring_allreduce_sharded(x, mesh),
+             lambda: ring_allgather(x, mesh),
+             lambda: sendrecv(x, mesh, [(0, 1)]),
+             lambda: sendrecv_sharded(x, mesh, [(0, 1)])]
+    for call in calls:
+        with pytest.raises(ValueError, match="cuda .kernel. or cpu"):
+            call()
+
+
+def test_cpu_collective_calls_are_not_counted_as_kernel_launches():
+    wrappers = (ring_allreduce, ring_allgather, sendrecv)
+    before = [w.launches for w in wrappers]
+    mesh = make_mesh(devices=["cpu"] * 4)
+    x = torch.randn(4, 8)
+    ring_allreduce(x, mesh)
+    ring_allreduce_sharded(torch.randn(4, 5), mesh)
+    ring_allgather(x, mesh)
+    ring_allgather_sharded(x, mesh)
+    sendrecv(x, mesh, [(0, 1), (1, 0)])
+    sendrecv_sharded(x, mesh, [(2, 3)])
     assert [w.launches for w in wrappers] == before
 
 
