@@ -18,7 +18,7 @@ port's three paths and checks what comes out:
 * the device collective layer: 8 ranks on the card, as on the 8 cards of
   an HGX H100 node, all-reduce the flagship's whole gradient (float32 and
   bf16), all-gather its bf16 parameters from eighths, and hand a bf16
-  activation around the ring and along a partial pattern (the ring
+  activation around the ring and along a partial pattern (the single-pass
   all-reduce, ring all-gather and send/receive kernels);
 
 then times the paths and the kernels, and prints:
@@ -80,12 +80,14 @@ TRAIN_GRAD_REL = 1e-3
 # remat recomputes the same forward: the loss of its first step must equal
 # the plain step's to rounding.
 REMAT_LOSS_RTOL = 1e-5
-# Ring collectives against their plain versions: tolerance 0 (the same hops
-# in the same order, rounded at each hop). The float32 ring all-reduce
-# against contribs.sum(0): each is a sum of the n contributions in some
-# order, within (n - 1) u sum|x_i| of the exact sum (u = 2**-24), so they
-# differ by at most 2 (n - 1) u sum|x_i|; the check allows 2 n u sum|x_i|
-# for the second-order terms.
+# Collective kernels against their plain versions: tolerance 0. The
+# all-gather and send/receive kernels take the plain versions' hops in the
+# same order; the all-reduce kernel is one pass that folds in the ring's
+# order, rounded at each fold, as the plain version's hops do. The float32
+# all-reduce against contribs.sum(0): each is a sum of the n contributions
+# in some order, within (n - 1) u sum|x_i| of the exact sum (u = 2**-24),
+# so they differ by at most 2 (n - 1) u sum|x_i|; the check allows
+# 2 n u sum|x_i| for the second-order terms.
 RING_RANKS = 8
 RING_SUM_TOL_U = 2 * RING_RANKS
 
@@ -119,6 +121,19 @@ def card_line() -> str:
     return out.splitlines()[0].strip()
 
 
+def sass_count(lib, opcode: str) -> int:
+    """Lines of ``cuobjdump -sass`` of the built library ``lib`` that hold
+    ``opcode``."""
+    import os
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return sum(opcode in line for line in sass.splitlines())
+
+
 def kernel_ms(fn, sets, reps):
     """Device ms per call of ``fn`` over ``reps`` calls, cycling ``sets``
     of arguments, after a warm-up, with CUDA events."""
@@ -147,6 +162,28 @@ def kernel_ms(fn, sets, reps):
           f"({sleep.elapsed_time(start)} ms): the timing would be the "
           f"host's")
     return start.elapsed_time(end) / reps
+
+
+def call_ms(fn, args, reps):
+    """Median device ms of single calls of ``fn(*args)``, each between two
+    CUDA events, after a warm-up: for a call that waits for the device
+    inside it, which kernel_ms's busy stream cannot hold."""
+    import statistics
+
+    import torch
+
+    fn(*args)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def bound(n_bytes, n_ops, dtype):
@@ -495,6 +532,17 @@ def flash_times(dev, gen, card):
               f" {lib * 1e3!r} us; bound {bound_ms * 1e3!r} us by "
               f"{bound_by} ({n_ops} operations, {n_bytes} bytes); "
               f"{n_ops / ms / 1e9!r} TFLOP/s  [{card}]")
+
+    # Kernel 1 at long context, where each block runs many key tiles and
+    # its fill and drain weigh little: one sequence of 8192.
+    sets = [tuple(torch.randn(1, 8192, h, d, generator=gen,
+                              device=dev).to(dtype) for _ in range(3))]
+    long_ms = kernel_ms(lambda q, k, v: flash_fwd(q, k, v, True), sets, 20)
+    long_sdpa = kernel_ms(sdpa, sets, 20)
+    n_ops = flash_work(1, 8192, 8192, h, h, d, 2, True)["flash_fwd"][1]
+    print(f"flash_fwd b=1 s=8192 h={h} d={d} {dtype} causal: kernel "
+          f"{long_ms * 1e3!r} us, sdpa forward {long_sdpa * 1e3!r} us; "
+          f"{n_ops / long_ms / 1e9!r} TFLOP/s  [{card}]")
     return rows
 
 
@@ -705,14 +753,25 @@ def ring_slice(dev, card):
     rows = {}
     for x in (grads32, grads16):
         e = x.element_size()
+        # sum(0) writes one copy of the result; the all-reduce writes n.
+        # One product with a matrix of ones writes every rank's copy: the
+        # same work, in one PyTorch call. At this size the call waits for
+        # the device before it returns, so it is timed call by call.
+        ones = torch.ones(n, n, dtype=x.dtype, device=dev)
+        same_ms = call_ms(lambda c: ones @ c.reshape(n, -1), (x,), 5)
         row = report(
             "ring_allreduce", f"sum {n} ranks x {m} {x.dtype}",
             kernel_ms(lambda c: ring_allreduce(c, mesh), [(x,)], 10),
             kernel_ms(ring_allreduce_plain, [(x,)], 3),
             kernel_ms(lambda c: torch.sum(c, 0), [(x,)], 10),
-            "torch.sum(contribs, 0)", 2 * n * m * e,
-            (2 * n + 5 * (n - 1)) * m * e, (n - 1) * m, x.dtype)
+            "torch.sum(contribs, 0)", 2 * n * m * e, 2 * n * m * e,
+            (n - 1) * m, x.dtype)
+        print(f"ring_allreduce sum {n} ranks x {m} {x.dtype}: same-work "
+              f"yardstick torch.ones({n}, {n}) @ contribs.reshape({n}, -1) "
+              f"{same_ms * 1e3!r} us (median of 5 single calls; every "
+              f"rank's copy, where sum(0) writes one)  [{card}]")
         rows.setdefault("ring_allreduce", row)  # the float32 row
+        del ones
     del grads32, grads16
     e = shards.element_size()
     rows["ring_allgather"] = report(
@@ -773,9 +832,13 @@ def main() -> int:
     for name in ("decode_attention", "flash_attention", "ring_collectives",
                  "sendrecv"):
         for line in _build.build_log(name).splitlines():
-            if "Compiling entry" in line or "Used" in line or \
-                    "spill" in line:
+            if any(w in line for w in ("Compiling entry", "Used", "spill",
+                                       "Performance Loss")):
                 print(f"  ptxas {name}: {line.strip()}")
+    hgmma = sass_count(_build.library_path("flash_attention"), "HGMMA")
+    check(hgmma > 0, "the flash library's SASS has no HGMMA (wgmma)")
+    print(f"flash_attention SASS: {hgmma} HGMMA instructions (kernel 1, "
+          f"bf16, on wgmma)")
 
     # ---- 2. kernels against plain -------------------------------------
     gen = torch.Generator(device=dev).manual_seed(1234)

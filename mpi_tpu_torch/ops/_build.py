@@ -20,7 +20,7 @@ from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load",
-           "build_log"]
+           "build_log", "library_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -49,6 +49,11 @@ def _lib_path(name: str) -> Path:
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
+    return _lib_path(name)
 
 
 def build_log(name: str) -> str:

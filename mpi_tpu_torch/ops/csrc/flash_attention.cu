@@ -11,36 +11,68 @@
 // p (and ds) are rounded to the operand dtype before the products they feed;
 // outputs are written once, in the dtype of their input.
 //
-// Kernel 1, flash_fwd_kernel, replaces mpi_tpu/ops/attention.py:
-// _flash_kernel_fwd_res. Kernel 2, flash_bwd_dq_kernel, replaces
-// _flash_bwd_dq_kernel. Kernel 3, flash_bwd_dkv_kernel, replaces
-// _flash_bwd_dkv_kernel. The TPU kernels walk one reduction axis as a
-// sequential grid axis with VMEM scratch; here one thread block owns one
-// output tile and walks that axis in a loop, with its state in registers.
+// Kernel 1 replaces mpi_tpu/ops/attention.py: _flash_kernel_fwd_res; kernel
+// 2, flash_bwd_dq_kernel, replaces _flash_bwd_dq_kernel; kernel 3,
+// flash_bwd_dkv_kernel, replaces _flash_bwd_dkv_kernel. The TPU kernels walk
+// one reduction axis as a sequential grid axis with VMEM scratch; here one
+// thread block owns one output tile and walks that axis in a loop, with its
+// state in registers.
 //
-// What bounds them on this card: operations. At the flagship training shape
-// (b 8, s = t 1024, h 8, d 128, bf16, causal) kernel 1 does 2 products of
-// about 8.6 GFLOP each against about 67 MB of q, k, v and out, some 250
-// FLOPs per byte; kernels 2 and 3 do 3 and 4 such products. The tensor
-// cores have to do the products, and the tiles have to be reused from
-// shared memory:
-//   * bf16 products are mma.sync m16n8k16 with float32 accumulators; each
-//     warp owns 16 rows of the output tile, so the 4 warps of a block share
-//     each K/V (or Q/dO) tile staged in shared memory;
-//   * tiles are staged by cp.async, double-buffered: the next tile's loads
-//     are all issued before the current tile is used;
-//   * shared-memory rows are padded by 16 bytes, so the fragment loads of a
-//     warp hit 32 different banks;
-//   * p and ds go through a small per-warp shared-memory tile on their way
-//     from the accumulator layout to the A operand of the next product;
-//   * causal tiles past the diagonal are skipped per block and per warp,
-//     and the ragged edge (s or t not a multiple of a tile) is zero-filled
-//     on load and masked, so no shape needs padding outside the kernel.
-// Not done yet: wgmma and TMA (the tensor cores' full rate on Hopper), warp
-// specialisation, and keeping p in registers between the two products.
-// The float32 instantiation does its products with FMAs on the CUDA cores
-// in the same layout; it exists for exact checks and is slow.
+// Kernel 1 in bf16 (flash_fwd_wgmma_kernel) is built for Hopper's tensor
+// cores. At the flagship training shape (b 8, s = t 1024, h 8, d 128,
+// causal) it must read q, k and v and write out and lse, 67.4 MB, 20.1 us
+// at 3.35 TB/s, and do two products of 8.6 GFLOP over the pairs the mask
+// keeps, 17.4 us at 989 TFLOP/s: both bounds are near, so the tensor cores
+// must run near their rate while the loads stay hidden. The design:
+//   * one block per 128 query rows of one (b, h): two consumer warpgroups of
+//     64 rows each and one producer warp, whose first thread issues every
+//     load. 288 threads leave each thread 224 registers at compile time.
+//     (With a whole producer warpgroup, 384 threads, ptxas held the
+//     consumers to the launch's 168 registers and spilled, setmaxnreg
+//     notwithstanding, so the kernel does without setmaxnreg.)
+//   * TMA (cp.async.bulk.tensor, 4-d tensor maps over the (b, s, h, d)
+//     layouts, made with cuTensorMapEncodeTiled through the runtime's
+//     driver entry point) loads Q once and K/V tiles of 128 keys into a
+//     two-stage ring, with full and empty mbarriers per stage and per
+//     operand; the 128-byte swizzle limits a box to 64 columns, so d = 128
+//     is two boxes; TMA's zero fill covers the ragged edge of s and t;
+//   * S = Q K^T is wgmma m64n128k16 with both operands in shared memory,
+//     K-major, 128-byte swizzled; O += P V is wgmma m64n{d}k16 with P in
+//     registers (the float32 S accumulator converted in place to the bf16
+//     A fragment: no shared-memory round trip) and V, MN-major, read through
+//     the instruction's transpose bit;
+//   * the two warpgroups take turns to issue their products (named
+//     barriers), so one's softmax runs while the other's products do;
+//   * the softmax state stays in registers; ex2.approx with scale * log2(e)
+//     folded into one FMA; the causal and ragged mask is applied only on
+//     tiles that cross the diagonal or the edge; tiles past the diagonal are
+//     skipped; key tiles run last first (the masked ones come first), and
+//     blocks run heaviest query tile first across all (b, h).
+// What holds it back at the flagship shape: a block runs 1 to 8 key tiles,
+// so every block's fill (Q and its first K/V from memory) and drain (out)
+// are exposed; at long context, where a block runs many tiles, the same
+// kernel is near its compute bound (chip_smoke.py times both). Not done
+// yet: a persistent grid that overlaps one tile's drain with the next
+// one's fill; overlap of a tile's softmax with the next tile's products
+// inside a warpgroup (with 128-key tiles ptxas then serializes the wgmmas
+// and spills, C7512; with 64-key tiles it fits but ran no faster); a TMA
+// store of out.
+//
+// Kernels 2 and 3 do 3 and 4 such products at the flagship shape against
+// 84 and 101 MB, so operations bound them (26.1 and 34.8 us). They, and
+// kernel 1 in float32, use mma.sync m16n8k16 (bf16) or FMAs (float32,
+// which exists for exact checks and is slow) in one layout: each warp
+// owns 16 rows of the output tile, the 4 warps of a block share each tile
+// staged in shared memory by double-buffered cp.async, rows padded by 16
+// bytes so a warp's fragment loads hit 32 banks, and p or ds goes through
+// a small per-warp shared tile between the two products. Causal tiles past
+// the diagonal are skipped per block and per warp, and the ragged edge is
+// zero-filled on load and masked, so no shape needs padding outside the
+// kernels. Not done yet for them: wgmma and TMA, warp specialisation, and
+// keeping p in registers.
 
+#include <cuda.h>  // CUtensorMap and its enums; the driver is reached
+                   // through cudaGetDriverEntryPoint, so no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -205,18 +237,20 @@ __device__ __forceinline__ int reversed_tile() {
   return gridDim.x - 1 - blockIdx.x;
 }
 
-// ---- kernel 1: forward --------------------------------------------------
+// ---- kernel 1, float32: forward -------------------------------------------
 //
 // One block per (query tile of 64 rows, b * h). Loops over key tiles of 64,
 // stopping at the diagonal when causal; m, l and the output accumulator
-// stay in registers (float32) and out and lse are written once.
+// stay in registers (float32) and out and lse are written once. (bf16 takes
+// flash_fwd_wgmma_kernel below.)
 
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void
-flash_fwd_tile(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ out,
+flash_fwd_tile(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ out,
                float* __restrict__ lse, int s, int t, int h, int hk,
                int causal, float scale, int bh) {
+  using T = float;
   constexpr int BM = kBlockM, BN = kFwdBlockN;
   constexpr int LD = D + vec<T>(), LDP = BN + vec<T>();
   constexpr int NS = BN / 8, NO = D / 8;
@@ -601,15 +635,15 @@ flash_bwd_dkv_tile(const T* __restrict__ q, const T* __restrict__ k,
 
 constexpr int kMaxGridY = 65535;
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int s, int t, int h, int hk,
                  int causal, float scale, int rows) {
   const int bh = blockIdx.y + gridDim.y * blockIdx.z;
   if (bh < rows) {
-    flash_fwd_tile<T, D>(q, k, v, out, lse, s, t, h, hk, causal, scale, bh);
+    flash_fwd_tile<D>(q, k, v, out, lse, s, t, h, hk, causal, scale, bh);
   }
 }
 
@@ -640,6 +674,507 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (bkv < rows) {
     flash_bwd_dkv_tile<T, D>(q, k, v, dout, lse, delta, dk, dv, s, t, h, hk,
                              causal, scale, bkv);
+  }
+}
+
+// ---- kernel 1, bf16: wgmma and TMA ----------------------------------------
+//
+// Shared memory holds Q (128 rows), and K and V tiles of 128 keys in a ring
+// of kFwdStages stages. Each tile is d / 64 column blocks of (rows x 64)
+// bf16, each block 128-byte swizzled as TMA writes it (16-byte piece c of
+// row r at c ^ (r % 8)) and 1024-byte aligned, which is the layout the
+// wgmma descriptors name: K-major for Q and K (a 16-deep step of d moves
+// the start by 32 bytes inside a block), MN-major for V (a step of 16 keys
+// moves it by 16 rows; the next 64 columns of d are the next block).
+
+constexpr int kFwdRows = 128;      // query rows per block
+constexpr int kFwdKeys = 128;      // keys per tile
+constexpr int kFwdStages = 2;      // K/V ring depth
+constexpr int kFwdThreads = 288;   // 2 consumer warpgroups + 1 producer warp
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct FwdSmem {
+  __nv_bfloat16 q[kFwdRows * D];
+  __nv_bfloat16 k[kFwdStages][kFwdKeys * D];
+  __nv_bfloat16 v[kFwdStages][kFwdKeys * D];
+  uint64_t q_full;
+  uint64_t k_full[kFwdStages], k_empty[kFwdStages];
+  uint64_t v_full[kFwdStages], v_empty[kFwdStages];
+};
+
+template <int D>
+constexpr int fwd_wgmma_smem() {
+  return static_cast<int>(sizeof(FwdSmem<D>)) + 1024;  // + alignment slack
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers and TMA
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+// Wait until the phase of parity `parity` has completed. A wait that has
+// not ended after some seconds traps, so a fault in the pipeline ends the
+// launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  for (uint32_t spin = 0;; ++spin) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if (spin > (1u << 26)) __trap();
+  }
+}
+
+// One box of a 4-d tensor map (coordinates innermost first) into shared
+// memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---- wgmma
+
+// Descriptor of a 128-byte swizzled operand tile: start address, leading
+// and stride byte offsets (in 16-byte units), layout type 1 (128B swizzle).
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16 |
+         static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous product that owns it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
+// d[64] (+)= A . B for m64n128k16: A and B from shared memory, both
+// K-major. scale_d 0 ignores d's old value.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[64] (+)= A . B for m64n128k16: A from registers (each warp's
+// m16k16 bf16 fragment of its 16 rows), B from shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                          const uint32_t (&a)[4],
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d[32] (+)= A . B for m64n64k16: A from registers (each warp's
+// m16k16 bf16 fragment of its 16 rows), B from shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                          const uint32_t (&a)[4],
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (D == 128) {
+    wgmma_rs_n128(d, a, b, 1);
+  } else {
+    wgmma_rs_n64(d, a, b, 1);
+  }
+}
+
+// 2^x by the hardware's approximation (ex2.approx.ftz: about 2 ulp).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+struct FwdShape {
+  int s, t, h, hk, causal, tiles;
+  long long rows;  // b * h
+  float scale;
+};
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Issue S = Q K^T for this warpgroup's 64 rows. q_desc and k_desc describe
+// the first column block of this warpgroup's Q rows and of a K stage; a
+// 16-deep step of d moves 32 bytes (2 units of 16) inside a block, and the
+// next block of 64 columns lies rows x 128 bytes on.
+template <int D>
+__device__ __forceinline__ void issue_s(float (&sc)[64], uint64_t q_desc,
+                                        uint64_t k_desc) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int blk = kk / 4, step = (kk % 4) * 2;
+    wgmma_ss_n128(sc, q_desc + blk * (kFwdRows * 128 / 16) + step,
+                  k_desc + blk * (kFwdKeys * 128 / 16) + step, kk > 0);
+  }
+}
+
+// Issue O += P V against the V stage that v_desc describes: a step of 16
+// keys moves 16 rows of 128 bytes.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&pa)[8][4],
+                                         uint64_t v_desc) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_pv<D>(o, pa[kk], v_desc + kk * (16 * 128 / 16));
+}
+
+// The online softmax of one key tile (keys n0 ..): masks where the tile
+// crosses the edge of t or, for this warp's rows, the diagonal; updates the
+// running max m_r and this thread's share of the row sums l_r; leaves p =
+// exp2(s c - m log2 e) in sc and the factor that rescales O in corr.
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], const FwdShape& f,
+                                             int n0, int row_w, int g, int qd,
+                                             float (&m_r)[2], float (&l_r)[2],
+                                             float (&corr)[2]) {
+  if (n0 + kFwdKeys > f.t || (f.causal && n0 + kFwdKeys - 1 > row_w)) {
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row_w + g + 8 * (e >> 1);
+        const int col = n0 + 8 * jj + 2 * qd + (e & 1);
+        if (col >= f.t || (f.causal && col > row)) sc[4 * jj + e] = -INFINITY;
+      }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * jj + e]);
+  const float c = f.scale * kLog2e;
+  float neg[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m_r[r], mx[r] * f.scale);
+    corr[r] = fast_exp2((m_r[r] - m_new) * kLog2e);
+    m_r[r] = m_new;
+    neg[r] = -m_new * kLog2e;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = fast_exp2(fmaf(sc[4 * jj + e], c, neg[e >> 1]));
+      sc[4 * jj + e] = p;
+      sum[e >> 1] += p;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * corr[r] + sum[r];
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const float (&corr)[2]) {
+#pragma unroll
+  for (int jj = 0; jj < N / 4; ++jj) {
+    o[4 * jj + 0] *= corr[0];
+    o[4 * jj + 1] *= corr[0];
+    o[4 * jj + 2] *= corr[1];
+    o[4 * jj + 3] *= corr[1];
+  }
+}
+
+// p, rounded to bf16, as the A fragments of the 8 key steps of P V: key
+// step kk is S columns 16 kk .. 16 kk + 15, accumulator blocks 2 kk and
+// 2 kk + 1.
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[8][4],
+                                       const float (&sc)[64]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+}
+
+// One consumer warpgroup: 64 query rows from row_wg, against key tiles
+// n_tiles - 1 .. 0. Thread (warp w, lane: g = lane / 4, qd = lane % 4) holds
+// rows row_wg + 16 w + g and + 8 of every accumulator: in S (64 x 128 keys),
+// sc[4 j + e] is key 8 j + 2 qd + (e & 1) of row + 8 (e >> 1); in O (64 x
+// d), o[4 j + e] column 8 j + 2 qd + (e & 1) likewise.
+template <int D>
+__device__ __forceinline__ void fwd_consumer(FwdSmem<D>& sm, const FwdShape& f,
+                                             __nv_bfloat16* __restrict__ out,
+                                             float* __restrict__ lse,
+                                             int wg, int m0, int bh,
+                                             int n_tiles) {
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, qd = lane % 4;
+  const int row_w = m0 + 64 * wg + 16 * warp;  // this warp's first row
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf};  // running max of the scaled logits
+  float l_r[2] = {0.f, 0.f};          // this thread's share of each row sum
+  float sc[64], corr[2];
+  uint32_t pa[8][4];
+  // Descriptors of this warpgroup's Q rows and of K and V stage 0; stage st
+  // lies st * stage units of 16 bytes on.
+  const uint64_t q_desc = wgmma_desc(sm.q + 64 * wg * 64, 16, 1024);
+  const uint64_t k_desc = wgmma_desc(sm.k[0], 16, 1024);
+  const uint64_t v_desc = wgmma_desc(sm.v[0], kFwdKeys * 128, 1024);
+  constexpr int stage = kFwdKeys * D * 2 / 16;
+
+  mbar_wait(&sm.q_full, 0);
+  // The two warpgroups take turns to issue their products (named barriers
+  // 1 and 2, warpgroup 0 first), so one's softmax runs while the other's
+  // products do.
+  if (n_tiles > 0 && wg == 0) named_arrive(1);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kFwdStages;
+    const uint32_t ph = (it / kFwdStages) & 1;
+    mbar_wait(&sm.k_full[st], ph);
+    named_sync(1 + wg);
+    wgmma_fence();
+    issue_s<D>(sc, q_desc, k_desc + st * stage);
+    wgmma_commit();
+    named_arrive(2 - wg);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    mbar_arrive(&sm.k_empty[st]);
+    softmax_tile(sc, f, (n_tiles - 1 - it) * kFwdKeys, row_w, g, qd, m_r,
+                 l_r, corr);
+    rescale(o, corr);
+    pack_p(pa, sc);
+    mbar_wait(&sm.v_full[st], ph);
+    named_sync(1 + wg);
+    fence_regs(pa);
+    fence_regs(o);
+    wgmma_fence();
+    issue_pv<D>(o, pa, v_desc + st * stage);
+    wgmma_commit();
+    named_arrive(2 - wg);
+    wgmma_wait<0>();
+    fence_regs(pa);
+    fence_regs(o);
+    mbar_arrive(&sm.v_empty[st]);
+  }
+  if (n_tiles > 0 && wg == 0) named_sync(1);  // warpgroup 1's last turn
+
+  const int bi = bh / f.h, hi = bh % f.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l = fmaxf(l, 1e-30f);
+    const int row = row_w + g + 8 * r;
+    if (row < f.s) {
+      __nv_bfloat16* orow =
+          out + ((static_cast<size_t>(bi) * f.s + row) * f.h + hi) * D;
+      const float inv = 1.f / l;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj)
+        *reinterpret_cast<uint32_t*>(orow + 8 * jj + 2 * qd) =
+            pack_bf16(o[4 * jj + 2 * r] * inv, o[4 * jj + 2 * r + 1] * inv);
+      if (qd == 0)
+        lse[static_cast<size_t>(bh) * f.s + row] = m_r[r] + logf(l);
+    }
+  }
+}
+
+// Block (x, y, z) is launch number L = x + X (y + Y z), and the blocks run
+// in about that order: L takes query tile tiles - 1 - L / rows of row
+// L % rows, so every row's heaviest causal tile starts before any lighter
+// one.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                 const FwdShape f) {
+  constexpr int NB = D / 64;
+  const long long launch =
+      blockIdx.x + static_cast<long long>(gridDim.x) *
+                       (blockIdx.y + static_cast<long long>(gridDim.y) *
+                                         blockIdx.z);
+  if (launch >= f.rows * f.tiles) return;
+  const int bh = static_cast<int>(launch % f.rows);
+  const int m0 = (f.tiles - 1 - static_cast<int>(launch / f.rows)) * kFwdRows;
+  int n_tiles = (f.t + kFwdKeys - 1) / kFwdKeys;
+  if (f.causal) n_tiles = min(n_tiles, (m0 + kFwdRows - 1) / kFwdKeys + 1);
+
+  extern __shared__ unsigned char smem_raw[];
+  FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int i = 0; i < kFwdStages; ++i) {
+      mbar_init(&sm.k_full[i], 1);
+      mbar_init(&sm.v_full[i], 1);
+      mbar_init(&sm.k_empty[i], 256);  // every consumer thread
+      mbar_init(&sm.v_empty[i], 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // the producer warp
+    if (threadIdx.x == 256) {
+      const int bi = bh / f.h, hi = bh % f.h, kvh = hi / (f.h / f.hk);
+      constexpr uint32_t kTileBytes = kFwdKeys * D * 2;
+      mbar_expect_tx(&sm.q_full, kFwdRows * D * 2);
+      for (int b = 0; b < NB; ++b)
+        tma_load(sm.q + b * kFwdRows * 64, &q_map, &sm.q_full, 64 * b, hi,
+                 m0, bi);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int n0 = (n_tiles - 1 - it) * kFwdKeys;
+        const int st = it % kFwdStages;
+        const uint32_t ph = ((it / kFwdStages) & 1) ^ 1;
+        mbar_wait(&sm.k_empty[st], ph);
+        mbar_expect_tx(&sm.k_full[st], kTileBytes);
+        for (int b = 0; b < NB; ++b)
+          tma_load(sm.k[st] + b * kFwdKeys * 64, &k_map, &sm.k_full[st],
+                   64 * b, kvh, n0, bi);
+        mbar_wait(&sm.v_empty[st], ph);
+        mbar_expect_tx(&sm.v_full[st], kTileBytes);
+        for (int b = 0; b < NB; ++b)
+          tma_load(sm.v[st] + b * kFwdKeys * 64, &v_map, &sm.v_full[st],
+                   64 * b, kvh, n0, bi);
+      }
+    }
+  } else {  // the consumer warpgroups
+    fwd_consumer<D>(sm, f, out, lse, wg, m0, bh, n_tiles);
   }
 }
 
@@ -684,20 +1219,118 @@ constexpr int dkv_smem() {
          static_cast<int>(sizeof(T));
 }
 
-template <typename T, int D>
-int fwd(const Args& a) {
-  constexpr int smem = fwd_smem<T, D>();
-  auto kern = flash_fwd_kernel<T, D>;
+template <int D>
+int fwd_f32(const Args& a) {
+  constexpr int smem = fwd_smem<float, D>();
+  auto kern = flash_fwd_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid = row_grid((a.s + kBlockM - 1) / kBlockM, a.b * a.h);
   kern<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.o0),
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o0),
       static_cast<float*>(a.o1), a.s, a.t, a.h, a.hk, a.causal, a.scale,
       a.b * a.h);
   return static_cast<int>(cudaGetLastError());
+}
+
+// cuTensorMapEncodeTiled, taken from the driver once through the runtime.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Tensor map of a bf16 (batch, rows, heads, d) tensor for boxes of 64
+// columns of one head over `box_rows` rows, 128-byte swizzled; reads past
+// `rows` are zeros. A tensor with no rows gets a zero map, never read.
+bool bf16_map(CUtensorMap* map, const void* base, int batch, int rows,
+              int heads, int d, int box_rows) {
+  *map = CUtensorMap{};
+  if (rows == 0) return true;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(heads) * d * 2,
+                                 static_cast<cuuint64_t>(rows) * heads * d *
+                                     2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The shared-memory limit of kernel 1 (bf16), raised once per device.
+template <int D>
+cudaError_t fwd_wgmma_init() {
+  constexpr int kMaxDevices = 64;
+  static bool ready[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && ready[dev])) return err;
+  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             fwd_wgmma_smem<D>());
+  if (err == cudaSuccess && dev < kMaxDevices) ready[dev] = true;
+  return err;
+}
+
+template <int D>
+int fwd_bf16(const Args& a) {
+  cudaError_t err = fwd_wgmma_init<D>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap q_map, k_map, v_map;
+  if (!bf16_map(&q_map, a.q, a.b, a.s, a.h, D, kFwdRows) ||
+      !bf16_map(&k_map, a.k, a.b, a.t, a.hk, D, kFwdKeys) ||
+      !bf16_map(&v_map, a.v, a.b, a.t, a.hk, D, kFwdKeys))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (a.s + kFwdRows - 1) / kFwdRows;
+  const FwdShape f{a.s, a.t, a.h, a.hk, a.causal, tiles,
+                   static_cast<long long>(a.b) * a.h, a.scale};
+  const dim3 grid = row_grid(tiles, a.b * a.h);
+  flash_fwd_wgmma_kernel<D>
+      <<<grid, kFwdThreads, fwd_wgmma_smem<D>(), a.stream>>>(
+          q_map, k_map, v_map, static_cast<__nv_bfloat16*>(a.o0),
+          static_cast<float*>(a.o1), f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fwd_any(const Args& a, int d, int is_bf16) {
+  if (is_bf16) {
+    if (d == 64) return fwd_bf16<64>(a);
+    if (d == 128) return fwd_bf16<128>(a);
+  } else {
+    if (d == 64) return fwd_f32<64>(a);
+    if (d == 128) return fwd_f32<128>(a);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T, int D>
@@ -748,7 +1381,6 @@ int bwd_dkv(const Args& a) {
     return static_cast<int>(cudaErrorInvalidValue);                    \
   }
 
-MPI_TPU_DISPATCH(fwd)
 MPI_TPU_DISPATCH(bwd_dq)
 MPI_TPU_DISPATCH(bwd_dkv)
 

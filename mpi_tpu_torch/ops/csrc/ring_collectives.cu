@@ -1,63 +1,60 @@
 // Ring collectives for Hopper (sm_90a) over the ranks of a mesh on one
-// device: kernel 5, the ring all-gather, and kernel 6, the ring all-reduce.
+// device: kernel 5, the ring all-gather, and kernel 6, the all-reduce.
 //
 // Kernel 5, ring_allgather_kernel, replaces mpi_tpu/ops/ring_collectives.py:
-// _allgather_kernel. Kernel 6, ring_allreduce_kernel, replaces
-// _allreduce_kernel. On the TPU each device runs its own copy of the kernel
-// and pushes a chunk into its ring neighbour's VMEM with a remote DMA,
-// waiting on a DMA semaphore before the next hop. Here every rank's buffers
-// lie on one card, and ONE cooperative launch runs the whole collective for
-// all ranks:
-//   * the kernel takes a table of per-rank pointers (each rank's input and
-//     output), not a base address and a stride, so a rank reads its left
-//     neighbour's output through a pointer, as it would read a peer's over
-//     NVLink;
-//   * a hop is a grid-stride pass over every rank's chunk, and a grid-wide
-//     barrier (cooperative_groups::this_grid().sync(), which needs the
-//     cooperative launch and a grid no larger than the blocks that can be
-//     resident) takes the place of the semaphore wait between hops. No
-//     block waits on a flag that another launch must set, so the kernel
-//     cannot deadlock on ranks that are not resident together;
-//   * instead of pushing, each rank PULLS the arriving chunk from its left
-//     neighbour's output.
+// _allgather_kernel. Kernel 6, allreduce_kernel, replaces _allreduce_kernel.
+// On the TPU each device runs its own copy of the kernel and pushes a chunk
+// into its ring neighbour's VMEM with a remote DMA, waiting on a DMA
+// semaphore before the next hop. Here every rank's buffers lie on one card,
+// and ONE launch runs the whole collective for all ranks. The kernels take
+// a table of per-rank pointers (each rank's input and output), not a base
+// address and a stride, so a rank's data is reached through a pointer, as a
+// peer's would be over NVLink.
 //
-// All-reduce of per-rank buffers of n chunks (chunk c of rank r: out[r][c]):
-//   copy:                  out[r] = x[r]
-//   reduce-scatter hop t:  c = (r - t - 1) mod n,
-//                          out[r][c] = out[r][c] (+) out[r - 1][c]
-//   all-gather hop t:      c = (r - t) mod n,  out[r][c] = out[r - 1][c]
-// for t = 0 .. n - 2, a barrier before each hop. This is the TPU kernel's
-// schedule: there rank r - 1 sends its chunk (r - 1 - t) mod n, which is
-// the chunk rank r folds in. No hop reads what it writes: in reduce-scatter
-// hop t rank r reads out[r - 1] at chunk (r - t - 1) mod n, and rank r - 1
-// writes only its own chunk (r - t - 2) mod n in that hop; in all-gather
-// hop t rank r reads out[r - 1] at chunk (r - t) mod n while rank r - 1
-// writes its chunk (r - t - 1) mod n. Both differ for n >= 2, and each
-// element of a chunk is read and written by one thread, so a hop needs no
-// barrier inside it. The all-gather is the same frame: out[r][r] = x[r],
-// then in hop t rank r copies chunk (r - t - 1) mod n from out[r - 1],
-// which rank r - 1 received in hop t - 1 (its own chunk for t = 0).
+// Kernel 5 keeps the ring. It is one cooperative launch with a grid of
+// resident blocks: out[r][r] = x[r], then in hop t = 0 .. n - 2 rank r
+// PULLS chunk (r - t - 1) mod n from rank r - 1's output, which rank r - 1
+// received in hop t - 1 (its own chunk for t = 0). A grid-wide barrier
+// (cooperative_groups::this_grid().sync()) takes the place of the
+// semaphore wait between hops; no block waits on a flag that another
+// launch must set, so it cannot deadlock on ranks that are not resident
+// together. In hop t rank r reads chunk (r - t - 1) mod n of out[r - 1]
+// while rank r - 1 writes its chunk (r - t - 2) mod n, so no hop reads what
+// it writes.
 //
-// Arithmetic: the operand order is local (+) arriving, and the result is
-// rounded to the working type after every hop (bf16 by __float2bfloat16_rn
-// of the float result), as the TPU kernel rounds when it stores. A float32
-// partial is never carried across hops. max and min propagate NaN, as
-// jnp.maximum and torch.maximum do (fmaxf and fminf would not); sum and
-// prod use __fadd_rn / __fmul_rn, which are never contracted.
+// Kernel 6 does NOT follow the TPU kernel's schedule, but gives its bits.
+// The TPU ring all-reduce is a reduce-scatter of n - 1 hops (in hop t rank r
+// folds out[r][c] = out[r][c] (+) out[r - 1][c] at c = (r - t - 1) mod n,
+// local operand first, rounded to the working type as it is stored), then
+// an all-gather of the reduced chunks. Following one output chunk c through
+// those hops: rank c + 1 starts it as x[c + 1] (+) x[c]; rank c + 2 folds
+// x[c + 2] (+) that; ... rank c + n - 1 = c - 1 finishes it as
+//   acc = x[c + n - 1] (+) (... (+) (x[c + 1] (+) x[c])),  indices mod n,
+// and the all-gather copies acc unchanged to every rank. So a single pass
+// gives the same bits: for each element at offset e of chunk c, one thread
+// loads x[k][c chunk + e] for every rank k (batches of 8 loads in flight),
+// folds acc = x[c]; acc = x[(c + k) mod n] (+) acc for k = 1 .. n - 1,
+// local first and rounded to T at every step, and stores acc to out[r] at
+// chunk c for every rank r. Each element's n reads come before its n
+// writes in one thread, and no thread touches another's elements, so an
+// output may alias an input. There is no barrier and no cooperative launch:
+// an ordinary grid-stride launch over n chunks of units.
+//
+// Arithmetic: the result is rounded to the working type after every fold
+// (bf16 by __float2bfloat16_rn of the float result), as the TPU kernel
+// rounds when it stores; a float32 partial is never carried across folds.
+// max and min propagate NaN, as jnp.maximum and torch.maximum do (fmaxf and
+// fminf would not); sum and prod use __fadd_rn / __fmul_rn, which are never
+// contracted.
 //
 // What bounds them on this card: memory. The least traffic of an all-reduce
 // is every input read once and every output written once, 2 n m elements
-// for n ranks of m; this ring moves 2 n m (copy) + 3 (n - 1) m (each
-// reduce-scatter hop reads two chunks and writes one per rank) + 2 (n - 1) m
-// (all-gather), 51 m at n = 8, some 3.2 times the least. The all-gather
-// moves 2 n c + 2 n (n - 1) c for chunks of c against a least of
-// n c + n^2 c. What the design does about it: 16-byte loads and stores
-// wherever every chunk and every rank's buffer is 16-byte aligned (checked
-// at each launch; element-wide otherwise, so a chunk of 24 bytes works), and
-// a grid of every block that can be resident. Not done yet: folding the
-// copy into the first hop, and a schedule that moves only the least bytes
-// (on one card, rank r could read all n inputs at once); on one device the
-// ring's only merit is that it is the ring.
+// for n ranks of m, and that is exactly what kernel 6 moves (the ring moved
+// 2 n m + 5 (n - 1) m, 3.2 times as much at n = 8). The all-gather moves
+// 2 n c + 2 n (n - 1) c for chunks of c against a least of n c + n^2 c.
+// Both take 16-byte loads and stores wherever every chunk and every rank's
+// buffer is 16-byte aligned (checked at each launch; element-wide
+// otherwise, so a chunk of 24 bytes works).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -124,43 +121,38 @@ __device__ __forceinline__ uint4 fold(uint4 a, uint4 b) {
   return a;
 }
 
-// ---- kernel 6: ring all-reduce ------------------------------------------
+// ---- kernel 6: single-pass all-reduce ------------------------------------
 //
 // T is the element type, V the unit moved (T, or uint4 for 16 bytes of T);
-// chunk is the length of one chunk in units of V.
+// chunk is the length of one chunk in units of V. Each thread takes offsets
+// e, e + stride, ... of every chunk c.
+
+constexpr int kBatch = 8;  // loads in flight per thread
 
 template <typename T, int OP, typename V>
 __global__ void __launch_bounds__(kThreads)
-ring_allreduce_kernel(const Ranks ranks, int n, long long chunk) {
-  cg::grid_group grid = cg::this_grid();
-  const long long tid =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+allreduce_kernel(const Ranks ranks, int n, long long chunk) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long total = chunk * n;
-  for (int r = 0; r < n; ++r) {
-    const V* x = static_cast<const V*>(ranks.in[r]);
-    V* o = static_cast<V*>(ranks.out[r]);
-    for (long long i = tid; i < total; i += stride) o[i] = x[i];
-  }
-  for (int t = 0; t < n - 1; ++t) {  // reduce-scatter
-    grid.sync();
-    for (int r = 0; r < n; ++r) {
-      const long long off = ring_mod(r - t - 1, n) * chunk;
-      V* own = static_cast<V*>(ranks.out[r]) + off;
-      const V* left = static_cast<const V*>(ranks.out[ring_mod(r - 1, n)]) +
-                      off;
-      for (long long i = tid; i < chunk; i += stride)
-        own[i] = fold<T, OP>(own[i], left[i]);
-    }
-  }
-  for (int t = 0; t < n - 1; ++t) {  // all-gather of the reduced chunks
-    grid.sync();
-    for (int r = 0; r < n; ++r) {
-      const long long off = ring_mod(r - t, n) * chunk;
-      V* own = static_cast<V*>(ranks.out[r]) + off;
-      const V* left = static_cast<const V*>(ranks.out[ring_mod(r - 1, n)]) +
-                      off;
-      for (long long i = tid; i < chunk; i += stride) own[i] = left[i];
+  for (int c = 0; c < n; ++c) {
+    for (long long i = c * chunk + static_cast<long long>(blockIdx.x) *
+                                       blockDim.x + threadIdx.x;
+         i < (c + 1) * chunk; i += stride) {
+      V acc;
+      for (int k0 = 0; k0 < n; k0 += kBatch) {
+        V x[kBatch];
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          if (k0 + b < n) {
+            const int r = c + k0 + b;  // < 2 n
+            x[b] = static_cast<const V*>(ranks.in[r < n ? r : r - n])[i];
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          if (k0 + b < n) acc = k0 + b == 0 ? x[b] : fold<T, OP>(x[b], acc);
+        }
+      }
+      for (int r = 0; r < n; ++r) static_cast<V*>(ranks.out[r])[i] = acc;
     }
   }
 }
@@ -194,12 +186,10 @@ ring_allgather_kernel(const Ranks ranks, int n, long long chunk) {
   }
 }
 
-// One cooperative launch of `kern` on `stream`: as many blocks as the work
-// of one hop (`units` per rank) needs, capped at the blocks that can be
-// resident at once, which grid.sync() requires.
+// As many blocks of `kern` as `units` need, one unit a thread, capped at
+// the blocks that can be resident on the card at once.
 template <typename K>
-int launch_cooperative(K kern, const Ranks& ranks, int n, long long chunk,
-                       long long units, cudaStream_t stream) {
+cudaError_t resident_grid(K kern, long long units, dim3* grid) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -207,12 +197,24 @@ int launch_cooperative(K kern, const Ranks& ranks, int n, long long chunk,
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
                                                         kThreads, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   const long long want = (units + kThreads - 1) / kThreads;
   const long long most = static_cast<long long>(sms) * per_sm;
-  const dim3 grid(static_cast<unsigned>(want < 1 ? 1 : (want < most ? want
-                                                                    : most)));
+  *grid = dim3(static_cast<unsigned>(want < 1 ? 1 : (want < most ? want
+                                                                 : most)));
+  return cudaSuccess;
+}
+
+// One cooperative launch of `kern` on `stream`: as many blocks as the work
+// of one hop (`units` per rank) needs, capped at the blocks that can be
+// resident at once, which grid.sync() requires.
+template <typename K>
+int launch_cooperative(K kern, const Ranks& ranks, int n, long long chunk,
+                       long long units, cudaStream_t stream) {
+  dim3 grid;
+  cudaError_t err = resident_grid(kern, units, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
   Ranks r = ranks;
   void* args[] = {&r, &n, &chunk};
   err = cudaLaunchCooperativeKernel((void*)kern, grid, dim3(kThreads), args,
@@ -221,16 +223,26 @@ int launch_cooperative(K kern, const Ranks& ranks, int n, long long chunk,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One ordinary launch of kernel 6, sized by one chunk's units (the
+// grid-stride loop takes every chunk).
+template <typename T, int OP, typename V>
+int launch_allreduce(const Ranks& ranks, int n, long long chunk,
+                     cudaStream_t stream) {
+  auto kern = allreduce_kernel<T, OP, V>;
+  dim3 grid;
+  cudaError_t err = resident_grid(kern, chunk, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<grid, kThreads, 0, stream>>>(ranks, n, chunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int OP>
 int allreduce_t(const Ranks& ranks, int n, long long chunk, bool vec,
                 cudaStream_t stream) {
-  if (vec) {
-    const long long c = chunk * static_cast<long long>(sizeof(T)) / 16;
-    return launch_cooperative(ring_allreduce_kernel<T, OP, uint4>, ranks, n,
-                              c, c, stream);
-  }
-  return launch_cooperative(ring_allreduce_kernel<T, OP, T>, ranks, n, chunk,
-                            chunk, stream);
+  if (vec)
+    return launch_allreduce<T, OP, uint4>(
+        ranks, n, chunk * static_cast<long long>(sizeof(T)) / 16, stream);
+  return launch_allreduce<T, OP, T>(ranks, n, chunk, stream);
 }
 
 template <typename T>
@@ -275,8 +287,8 @@ extern "C" {
 int ring_collectives_max_ranks() { return kMaxRanks; }
 
 // Kernel 6: rank r's n * chunk elements x[r] -> out[r], reduced over the
-// ranks. is_bf16 selects bfloat16 (else float32); op: 0 sum, 1 max, 2 min,
-// 3 prod.
+// ranks in the ring's fold order. is_bf16 selects bfloat16 (else float32);
+// op: 0 sum, 1 max, 2 min, 3 prod.
 int ring_allreduce(const void* const* in, void* const* out, int n,
                    long long chunk, int is_bf16, int op, void* stream) {
   if (n < 1 || n > kMaxRanks || chunk < 0)

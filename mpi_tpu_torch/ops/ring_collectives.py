@@ -6,7 +6,10 @@ the Pallas kernel on its own shard inside ``shard_map`` and pushes chunks to
 its ring neighbour by remote DMA. Here a mesh's ranks may share one device
 (:mod:`mpi_tpu_torch.parallel.mesh`), and each collective is ONE launch of a
 hand-written CUDA kernel over all of them (``csrc/ring_collectives.cu``; see
-the note there for its design and what bounds it).
+the note there for its design and what bounds it). The all-gather kernel
+keeps the ring's hops; the all-reduce kernel is a single pass that folds
+each chunk in the ring's order, so it gives the ring's bits while it reads
+every input once and writes every output once.
 
 Layouts follow the JAX global view, so one numpy array feeds both packages:
 
@@ -23,7 +26,8 @@ Layouts follow the JAX global view, so one numpy array feeds both packages:
 The ring runs over every rank of the mesh in order. On a CUDA tensor the
 wrappers launch the kernel (each counts its launches in ``.launches``) or
 raise; on a CPU tensor they run the plain PyTorch version, which replays the
-same hops in the same order, so results agree bit for bit.
+TPU kernel's hops; the kernels fold and round in the same order, so results
+agree bit for bit.
 """
 
 from __future__ import annotations
@@ -195,13 +199,14 @@ def _check_contribs(contribs: torch.Tensor, n: int) -> None:
 
 def ring_allreduce(contribs: torch.Tensor, mesh: RankMesh, op: str = "sum"
                    ) -> torch.Tensor:
-    """Bandwidth-optimal ring all-reduce (``op`` in sum, max, min, prod) of
-    ``contribs`` ``(n, m, ...)`` over the n ranks of ``mesh``; returns
-    every rank's copy ``(n, m, ...)``. ``m`` must be divisible by n
-    (:func:`ring_allreduce_sharded` pads). The reduction order is ring
-    order: deterministic, but not the order of ``contribs.sum(0)``.
+    """All-reduce (``op`` in sum, max, min, prod) of ``contribs`` ``(n, m,
+    ...)`` over the n ranks of ``mesh``; returns every rank's copy ``(n, m,
+    ...)``. ``m`` must be divisible by n (:func:`ring_allreduce_sharded`
+    pads). The reduction order is ring order: deterministic, but not the
+    order of ``contribs.sum(0)``.
 
-    CUDA tensors launch kernel 6 (float32 or bfloat16); CPU tensors run
+    CUDA tensors launch kernel 6 (float32 or bfloat16), one pass that
+    reads each input once and writes each output once; CPU tensors run
     :func:`ring_allreduce_plain` (any dtype)."""
     if op not in _OPS:
         raise ValueError(f"mpi_tpu_torch: unknown ring op {op!r}")

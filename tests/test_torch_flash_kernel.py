@@ -44,6 +44,13 @@ def cuda():
     (2, 96, 160, 4, 2, 64, False),      # s != t: a ring chunk
     (1, 160, 96, 4, 4, 128, True),      # s > t, causal
     (8193, 64, 64, 8, 8, 64, True),     # b * h = 65544 > grid y's 65535
+    (8, 1024, 1024, 8, 8, 128, True),   # the flagship training shape
+    (2, 127, 127, 4, 4, 128, True),     # around the forward's 128-row and
+    (2, 129, 129, 4, 2, 128, True),     # 128-key tiles
+    (1, 257, 257, 4, 4, 64, False),
+    (2, 129, 257, 4, 2, 128, True),     # s < t, causal
+    (1, 257, 127, 4, 4, 64, True),      # s > t, causal
+    (2, 256, 256, 8, 2, 64, True),      # GQA at head_dim 64
 ])
 def test_kernels_match_plain(cuda, dtype, b, s, t, h, hk, d, causal):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -72,6 +79,19 @@ def test_kernels_match_plain(cuda, dtype, b, s, t, h, hk, d, causal):
                                    msg=lambda m, n=name: f"{n}: {m}")
     assert (flash_fwd.launches, flash_bwd_dq.launches,
             flash_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_is_one_launch_per_call(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(2, 200, 4, 128, generator=gen, device=cuda).to(
+        dtype) for _ in range(3))
+    for i in range(3):
+        before = flash_fwd.launches
+        flash_fwd(q, k, v, causal=bool(i % 2))
+        assert flash_fwd.launches == before + 1
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -7,6 +7,9 @@
   only for CPU tensors; any other device raises instead of falling back,
   and a CPU call counts no kernel launch.
 * A missing CUDA compiler is an error, never a stub.
+* The all-reduce kernel is one ordinary launch: no grid barrier, no
+  cooperative launch. The bf16 flash forward multiplies on wgmma with P in
+  registers, not through shared memory.
 """
 
 import re
@@ -157,3 +160,48 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
+
+
+CSRC = ROOT / "mpi_tpu_torch" / "ops" / "csrc"
+
+
+def _c_function(src: str, name: str) -> str:
+    """The text of the C++ function ``name`` in ``src``: its definition
+    (the first ``name(`` followed by a body), braces matched."""
+    for m in re.finditer(rf"\b{name}\s*\(", src):
+        end = src.find(";", m.end())
+        brace = src.find("{", m.end())
+        if brace < 0 or (0 <= end < brace):
+            continue  # a call or a declaration
+        depth = 0
+        for i in range(brace, len(src)):
+            depth += {"{": 1, "}": -1}.get(src[i], 0)
+            if depth == 0:
+                return src[m.start():i + 1]
+    raise AssertionError(f"no definition of {name}")
+
+
+def test_allreduce_kernel_is_one_ordinary_launch():
+    src = (CSRC / "ring_collectives.cu").read_text()
+    for name in ("allreduce_kernel", "launch_allreduce", "allreduce_t",
+                 "ring_allreduce"):
+        body = _c_function(src, name)
+        for banned in ("this_grid", ".sync()", "cudaLaunchCooperativeKernel",
+                       "launch_cooperative"):
+            assert banned not in body, f"{name} uses {banned}"
+    assert "<<<" in _c_function(src, "launch_allreduce")
+
+
+def test_bf16_flash_forward_keeps_p_in_registers():
+    src = (CSRC / "flash_attention.cu").read_text()
+    consumer = _c_function(src, "fwd_consumer")
+    assert "issue_s<D>" in consumer and "issue_pv<D>" in consumer
+    assert "wgmma_rs_n" in _c_function(src, "wgmma_pv")
+    assert "wgmma.mma_async" in _c_function(src, "wgmma_ss_n128")
+    for banned in ("stash", "warp_gemm", "mma_bf16", "__shared__"):
+        assert banned not in consumer, f"fwd_consumer uses {banned}"
+    # The bf16 forward launches the wgmma kernel; the mma.sync forward body
+    # takes float32 only.
+    assert "flash_fwd_wgmma_kernel<D>" in _c_function(src, "fwd_bf16")
+    assert "const float* __restrict__ q" in _c_function(src,
+                                                         "flash_fwd_tile")

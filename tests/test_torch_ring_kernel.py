@@ -1,12 +1,15 @@
-"""Kernels 5-7 (ring all-gather, ring all-reduce, static send/receive)
-against their plain PyTorch versions, on the card. Skips where there is no
-CUDA device: the kernels have no CPU mode.
+"""Kernels 5-7 (ring all-gather, all-reduce, static send/receive) against
+their plain PyTorch versions, on the card. Skips where there is no CUDA
+device: the kernels have no CPU mode.
 
-Tolerance 0. The kernels and the plain versions take the same hops in the
-same order and round to the working dtype at each hop, so the outputs must
-be equal bit for bit; the one exception is a NaN's payload (the kernel
-rounds a bf16 NaN to the canonical one of the cvt instruction, PyTorch to
-its own), so NaNs are compared by position.
+Tolerance 0. The all-gather and send/receive kernels take the same hops in
+the same order as their plain versions. The all-reduce kernel is one pass,
+but folds each chunk in the ring's order and rounds to the working dtype at
+each fold, as the plain version's hops do (tests/test_torch_ring_onepass.py
+proves the order on the CPU). So the outputs must be equal bit for bit; the
+one exception is a NaN's payload (the kernel rounds a bf16 NaN to the
+canonical one of the cvt instruction, PyTorch to its own), so NaNs are
+compared by position.
 """
 
 import pytest
@@ -59,7 +62,7 @@ def _contribs(cuda, n, rows, inner, op, dtype, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("op", ["sum", "max", "min", "prod"])
-@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 8, 64])
 @pytest.mark.parametrize("rows,inner", [(2, 3), (512, 8)])
 def test_allreduce_kernel_matches_plain(cuda, n, op, dtype, rows, inner):
     # rows 2 x inner 3: chunks of 6 elements, element-wide path; rows 512 x
@@ -93,6 +96,23 @@ def test_allreduce_kernel_propagates_nan(cuda, op, dtype):
     got = ring_allreduce(x, make_mesh(devices=[cuda] * 4), op)
     assert torch.isnan(got[:, 3, 1]).all()
     assert same(got, ring_allreduce_plain(x, op))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [3, 8])
+def test_allreduce_kernel_unaligned_buffers(cuda, n, dtype):
+    # Chunks of 64 elements but buffers that start 1 element past 16 bytes:
+    # the element-wide path, though every chunk is a multiple of 16 bytes.
+    x = _contribs(cuda, n, 64 * n + 1, 1, "sum", dtype, seed=n)
+    x = x.reshape(-1)[1:1 + n * 64 * n].reshape(n, 64 * n)
+    assert x.data_ptr() % 16
+    mesh = make_mesh(devices=[cuda] * n)
+    before = ring_allreduce.launches
+    got = ring_allreduce(x, mesh)
+    torch.cuda.synchronize()
+    assert ring_allreduce.launches == before + 1
+    assert same(got, ring_allreduce_plain(x))
 
 
 @pytest.mark.cuda
