@@ -13,8 +13,9 @@ port's three paths and checks what comes out:
   flash-decode kernel);
 * training: ten AdamW steps of the flagship LM at full width and depth
   through ``make_train_step`` (the flash forward and the two FA-2 backward
-  kernels), one more with ``remat`` and one with ``grad_accum=2``, and one
-  float32 step with flash attention against dense attention;
+  kernels, kernel 2 computing delta itself), one more with ``remat`` and
+  one with ``grad_accum=2``, and one float32 step with flash attention
+  against dense attention;
 * the device collective layer: 8 ranks on the card, as on the 8 cards of
   an HGX H100 node, all-reduce the flagship's whole gradient (float32 and
   bf16), all-gather its bf16 parameters from eighths, and hand a bf16
@@ -67,6 +68,13 @@ FLASH_TOL = {
     "torch.bfloat16": {"out": (2e-2, 2e-2), "lse": (1e-3, 1e-3),
                        "grad": (2e-2, 2e-2)},
 }
+# delta = rowsum(dout * out), computed by kernel 2 in float32 from the
+# stored values as the plain version does: summation order only.
+DELTA_TOL = (1e-5, 1e-5)
+# The bf16 kernels on wgmma: each must hold HGMMA in its SASS, and ptxas
+# must give the two backward kernels no spill.
+WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                 "flash_bwd_dkv_wgmma_kernel")
 # Teacher-forced decode, flash against dense, float32 logits after 8
 # layers: both are float32 end to end and differ by summation order.
 SLICE_LOGITS_ATOL = 1e-3
@@ -121,9 +129,9 @@ def card_line() -> str:
     return out.splitlines()[0].strip()
 
 
-def sass_count(lib, opcode: str) -> int:
-    """Lines of ``cuobjdump -sass`` of the built library ``lib`` that hold
-    ``opcode``."""
+def sass_counts(lib, opcode: str) -> dict:
+    """{function: lines that hold ``opcode``} over the ``Function :``
+    sections of ``cuobjdump -sass`` of the built library ``lib``."""
     import os
     import shutil
 
@@ -131,7 +139,43 @@ def sass_count(lib, opcode: str) -> int:
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    return sum(opcode in line for line in sass.splitlines())
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and opcode in line:
+            counts[fn] += 1
+    return counts
+
+
+def ptxas_report(log: str) -> dict:
+    """{entry function: (registers, spill store bytes, spill load bytes)}
+    from nvcc's ``-Xptxas -v`` output."""
+    import re
+
+    report, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            report[fn] = [None, 0, 0]
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report[fn][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[fn][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in report.items()}
+
+
+def named(report: dict, kernel: str) -> dict:
+    """The entries of ``report`` whose (mangled) name holds ``kernel``."""
+    return {k: v for k, v in report.items() if kernel in k}
 
 
 def kernel_ms(fn, sets, reps):
@@ -197,8 +241,9 @@ def bound(n_bytes, n_ops, dtype):
 
 def flash_work(b, s, t, h, hk, d, elt, causal):
     """{kernel: (bytes, operations)} that kernels 1-3 need for these
-    inputs: each input read once and each output written once; 2 d
-    operations per product for every (query, key) pair the mask keeps."""
+    inputs: each input read once and each output written once (kernel 2
+    also reads out and writes delta, which it computes); 2 d operations
+    per product for every (query, key) pair the mask keeps."""
     pairs = sum(min(r + 1, t) for r in range(s)) if causal else s * t
     product = 2 * d * pairs * b * h
     q_bytes = b * s * h * d * elt
@@ -206,7 +251,7 @@ def flash_work(b, s, t, h, hk, d, elt, causal):
     rows = 4 * b * h * s  # one float32 row vector (lse or delta)
     return {
         "flash_fwd": (2 * q_bytes + 2 * kv_bytes + rows, 2 * product),
-        "flash_bwd_dq": (3 * q_bytes + 2 * kv_bytes + 2 * rows,
+        "flash_bwd_dq": (4 * q_bytes + 2 * kv_bytes + 2 * rows,
                          3 * product),
         "flash_bwd_dkv": (2 * q_bytes + 4 * kv_bytes + 2 * rows,
                           4 * product),
@@ -218,8 +263,10 @@ def check_flash_kernels(dev, gen):
     largest |kernel - plain| of each kernel over every case."""
     import torch
 
-    from mpi_tpu_torch.ops.attention import (flash_attention_bwd_plain,
+    from mpi_tpu_torch.ops.attention import (_delta,
+                                             flash_attention_bwd_plain,
                                              flash_attention_fwd_plain,
+                                             flash_bwd_dq_delta,
                                              flash_chunk_bwd, flash_fwd)
 
     shapes = [  # (b, s, t, h, hk, d, causal)
@@ -233,6 +280,7 @@ def check_flash_kernels(dev, gen):
         (8193, 64, 64, 8, 8, 64, True),     # b * h = 65544 > grid y's 65535
     ]
     worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    worst_delta = 0.0
     n_cmp = 0
     for b, s, t, h, hk, d, causal in shapes:
         for dtype in (torch.float32, torch.bfloat16):
@@ -249,7 +297,19 @@ def check_flash_kernels(dev, gen):
             got = flash_chunk_bwd(q, k, v, ref, ref_lse, g, causal)
             want = flash_attention_bwd_plain(q, k, v, ref, ref_lse, g,
                                              causal)
+            # Kernel 2 again, for its delta: within DELTA_TOL of the plain
+            # rowsum, and dq bitwise the first call's (no atomics).
+            dq2, delta = flash_bwd_dq_delta(q, k, v, g, ref_lse, ref, causal)
+            want_delta = _delta(ref, g)
             torch.cuda.synchronize()
+            check(torch.equal(dq2, got[0]),
+                  f"kernel 2 gave two dq at {where}")
+            check(torch.allclose(delta, want_delta, atol=DELTA_TOL[0],
+                                 rtol=DELTA_TOL[1]),
+                  f"kernel 2 delta differs from plain by "
+                  f"{(delta - want_delta).abs().max().item()} at {where}")
+            worst_delta = max(worst_delta,
+                              (delta - want_delta).abs().max().item())
             pairs = [("out", "flash_fwd", out, ref, tol["out"]),
                      ("lse", None, lse, ref_lse, tol["lse"]),
                      ("dq", "flash_bwd_dq", got[0], want[0], tol["grad"]),
@@ -266,9 +326,11 @@ def check_flash_kernels(dev, gen):
                 if kernel:
                     worst[kernel] = max(worst[kernel], err)
             n_cmp += 1
-            del q, g, k, v, out, lse, ref, ref_lse, got, want
-    print(f"flash kernels vs plain: {n_cmp} cases (out, lse, dq, dk, dv "
-          f"each) pass; max |err| {worst} (tolerances {FLASH_TOL})")
+            del q, g, k, v, out, lse, ref, ref_lse, got, want, dq2, delta
+    print(f"flash kernels vs plain: {n_cmp} cases (out, lse, dq, dk, dv, "
+          f"delta each; dq bitwise equal over two calls) pass; max |err| "
+          f"{worst}, delta {worst_delta!r} (tolerances {FLASH_TOL}, delta "
+          f"{DELTA_TOL})")
     return worst
 
 
@@ -467,36 +529,42 @@ def flash_vs_dense(dev):
 
 def flash_times(dev, gen, card):
     """Each flash kernel at the flagship training shape: kernel, plain
-    version and SDPA times (ms) and the bound."""
+    version and SDPA times (ms) and the bound; then the whole bf16
+    backward (kernel 2 with delta, then kernel 3) against SDPA's backward
+    at the flagship shape and at one sequence of 8192."""
     import torch
     import torch.nn.functional as F
 
     from mpi_tpu_torch.ops.attention import (_bwd_plain, _delta,
                                              flash_attention_fwd_plain,
                                              flash_bwd_dkv, flash_bwd_dq,
-                                             flash_fwd)
+                                             flash_bwd_dq_delta,
+                                             flash_chunk_bwd, flash_fwd)
 
     b, s, h, d, dtype = 8, 1024, 8, 128, torch.bfloat16
-    # Two sets of inputs (2 x 86 MB, over the 50 MB L2) alternate, so each
+    # Two sets of inputs (2 x 103 MB, over the 50 MB L2) alternate, so each
     # launch reads its inputs from device memory, as a training step does.
     sets = []
     for _ in range(2):
         q, k, v, g = (torch.randn(b, s, h, d, generator=gen,
                                   device=dev).to(dtype) for _ in range(4))
         out, lse = flash_fwd(q, k, v, True)
-        sets.append((q, k, v, g, lse, _delta(out, g)))
+        sets.append((q, k, v, g, lse, _delta(out, g), out))
     work = flash_work(b, s, s, h, h, d, 2, True)
+    # Kernel 2 as the main path calls it, computing delta from out; its
+    # plain version is the plain backward and the plain delta.
     fns = {
-        "flash_fwd": (lambda q, k, v, g, lse, dl: flash_fwd(q, k, v, True),
-                      lambda q, k, v, g, lse, dl:
+        "flash_fwd": (lambda q, k, v, g, lse, dl, o:
+                      flash_fwd(q, k, v, True),
+                      lambda q, k, v, g, lse, dl, o:
                       flash_attention_fwd_plain(q, k, v, True)),
-        "flash_bwd_dq": (lambda q, k, v, g, lse, dl:
-                         flash_bwd_dq(q, k, v, g, lse, dl, True),
-                         lambda q, k, v, g, lse, dl:
-                         _bwd_plain(q, k, v, g, lse, dl, True)),
-        "flash_bwd_dkv": (lambda q, k, v, g, lse, dl:
+        "flash_bwd_dq": (lambda q, k, v, g, lse, dl, o:
+                         flash_bwd_dq_delta(q, k, v, g, lse, o, True),
+                         lambda q, k, v, g, lse, dl, o:
+                         _bwd_plain(q, k, v, g, lse, _delta(o, g), True)),
+        "flash_bwd_dkv": (lambda q, k, v, g, lse, dl, o:
                           flash_bwd_dkv(q, k, v, g, lse, dl, True),
-                          lambda q, k, v, g, lse, dl:
+                          lambda q, k, v, g, lse, dl, o:
                           _bwd_plain(q, k, v, g, lse, dl, True)),
     }
 
@@ -507,22 +575,29 @@ def flash_times(dev, gen, card):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True)
 
+    def sdpa_bwd_ms(sets, reps):
+        graphs = []
+        for q, k, v, g, *_ in sets:
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            graphs.append((sdpa(*leaves), leaves, g.transpose(1, 2)))
+        return kernel_ms(
+            lambda o, leaves, g: torch.autograd.grad(o, leaves, g,
+                                                     retain_graph=True),
+            graphs, reps)
+
+    def backward_ms(sets, reps):
+        return kernel_ms(lambda q, k, v, g, lse, dl, o:
+                         flash_chunk_bwd(q, k, v, o, lse, g, True), sets,
+                         reps)
+
     sdpa_fwd_ms = kernel_ms(lambda q, k, v, *_: sdpa(q, k, v), sets, 50)
-    graphs = []
-    for q, k, v, g, *_ in sets:
-        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-        graphs.append((sdpa(*leaves), leaves, g.transpose(1, 2)))
-    sdpa_bwd_ms = kernel_ms(
-        lambda o, leaves, g: torch.autograd.grad(o, leaves, g,
-                                                 retain_graph=True),
-        graphs, 50)
-    del graphs
+    sdpa_bwd = sdpa_bwd_ms(sets, 50)
     rows = {}
     for name, (fn, plain) in fns.items():
         ms = kernel_ms(fn, sets, 50)
         plain_ms = kernel_ms(plain, sets, 4)
         bound_ms, bound_by = bound(*work[name], dtype)
-        lib = sdpa_fwd_ms if name == "flash_fwd" else sdpa_bwd_ms
+        lib = sdpa_fwd_ms if name == "flash_fwd" else sdpa_bwd
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=lib)
         n_bytes, n_ops = work[name]
@@ -533,16 +608,42 @@ def flash_times(dev, gen, card):
               f"{bound_by} ({n_ops} operations, {n_bytes} bytes); "
               f"{n_ops / ms / 1e9!r} TFLOP/s  [{card}]")
 
-    # Kernel 1 at long context, where each block runs many key tiles and
-    # its fill and drain weigh little: one sequence of 8192.
-    sets = [tuple(torch.randn(1, 8192, h, d, generator=gen,
-                              device=dev).to(dtype) for _ in range(3))]
-    long_ms = kernel_ms(lambda q, k, v: flash_fwd(q, k, v, True), sets, 20)
-    long_sdpa = kernel_ms(sdpa, sets, 20)
-    n_ops = flash_work(1, 8192, 8192, h, h, d, 2, True)["flash_fwd"][1]
+    given_ms = kernel_ms(lambda q, k, v, g, lse, dl, o:
+                         flash_bwd_dq(q, k, v, g, lse, dl, True), sets, 50)
+    print(f"flash_bwd_dq with delta given (no out read, no delta write): "
+          f"kernel {given_ms * 1e3!r} us  [{card}]")
+
+    def report_backward(label, sets, n_sdpa, work):
+        ms = backward_ms(sets, 50)
+        n_bytes = work["flash_bwd_dq"][0] + work["flash_bwd_dkv"][0]
+        n_ops = work["flash_bwd_dq"][1] + work["flash_bwd_dkv"][1]
+        bound_ms, bound_by = bound(n_bytes, n_ops, dtype)
+        print(f"flash backward (kernel 2 with delta, then kernel 3) "
+              f"{label} {dtype} causal: {ms * 1e3!r} us, sdpa backward "
+              f"(dq, dk, dv) {n_sdpa * 1e3!r} us, ratio {ms / n_sdpa!r}; "
+              f"bound {bound_ms * 1e3!r} us by {bound_by}; "
+              f"{n_ops / ms / 1e9!r} TFLOP/s over 7 products  [{card}]")
+
+    report_backward(f"b={b} s={s} h={h} d={d}", sets, sdpa_bwd, work)
+    del sets
+
+    # Kernel 1, and the whole backward, at long context, where each block
+    # runs many tiles and its fill and drain weigh little: one sequence of
+    # 8192.
+    q, k, v, g = (torch.randn(1, 8192, h, d, generator=gen,
+                              device=dev).to(dtype) for _ in range(4))
+    out, lse = flash_fwd(q, k, v, True)
+    sets = [(q, k, v, g, lse, _delta(out, g), out)]
+    long_ms = kernel_ms(lambda q, k, v, *_: flash_fwd(q, k, v, True), sets,
+                        20)
+    long_sdpa = kernel_ms(lambda q, k, v, *_: sdpa(q, k, v), sets, 20)
+    long_work = flash_work(1, 8192, 8192, h, h, d, 2, True)
+    n_ops = long_work["flash_fwd"][1]
     print(f"flash_fwd b=1 s=8192 h={h} d={d} {dtype} causal: kernel "
           f"{long_ms * 1e3!r} us, sdpa forward {long_sdpa * 1e3!r} us; "
           f"{n_ops / long_ms / 1e9!r} TFLOP/s  [{card}]")
+    report_backward(f"b=1 s=8192 h={h} d={d}", sets, sdpa_bwd_ms(sets, 20),
+                    long_work)
     return rows
 
 
@@ -835,10 +936,21 @@ def main() -> int:
             if any(w in line for w in ("Compiling entry", "Used", "spill",
                                        "Performance Loss")):
                 print(f"  ptxas {name}: {line.strip()}")
-    hgmma = sass_count(_build.library_path("flash_attention"), "HGMMA")
-    check(hgmma > 0, "the flash library's SASS has no HGMMA (wgmma)")
-    print(f"flash_attention SASS: {hgmma} HGMMA instructions (kernel 1, "
-          f"bf16, on wgmma)")
+    hgmma = sass_counts(_build.library_path("flash_attention"), "HGMMA")
+    report = ptxas_report(_build.build_log("flash_attention"))
+    for kernel in WGMMA_KERNELS:
+        counts = named(hgmma, kernel)
+        check(len(counts) == 2 and all(counts.values()),
+              f"{kernel}: HGMMA per instantiation {counts}; want some in "
+              f"each of d = 64 and 128")
+        regs = named(report, kernel)
+        check(len(regs) == 2, f"{kernel}: no ptxas report ({regs})")
+        if kernel != "flash_fwd_wgmma_kernel":
+            check(all(st == ld == 0 for _, st, ld in regs.values()),
+                  f"{kernel} spills: {regs}")
+        print(f"{kernel}: HGMMA {sorted(counts.values())}, ptxas "
+              f"(registers, spill store / load bytes) "
+              f"{sorted(regs.values())} for d = 64 and 128")
 
     # ---- 2. kernels against plain -------------------------------------
     gen = torch.Generator(device=dev).manual_seed(1234)

@@ -5,10 +5,12 @@
 hand-written CUDA kernels (``csrc/flash_attention.cu``; see the note there
 for their design and what bounds them): the forward (kernel 1, which also
 emits the per-row log-sum-exp) and the FlashAttention-2 backward, dq
-(kernel 2) and dk/dv (kernel 3), which rebuild the probabilities from
-``(q, k, lse)``. Each kernel's wrapper (:func:`flash_fwd`,
-:func:`flash_bwd_dq`, :func:`flash_bwd_dkv`) launches it for CUDA tensors
-and counts the launch in its ``launches``; for CPU tensors it runs the
+(kernel 2, which can also compute δ = rowsum(dO∘O) itself) and dk/dv
+(kernel 3), which rebuild the probabilities from ``(q, k, lse)``. Each
+kernel's wrapper (:func:`flash_fwd`, :func:`flash_bwd_dq` and
+:func:`flash_bwd_dq_delta`, :func:`flash_bwd_dkv`) launches it for CUDA
+tensors and counts the launch in its ``launches`` (both kernel 2 wrappers
+in ``flash_bwd_dq.launches``); for CPU tensors it runs the
 plain PyTorch version of the same function
 (:func:`flash_attention_fwd_plain`, :func:`flash_attention_bwd_plain`); on
 any other device, or on an input the kernel does not take, it raises.
@@ -33,7 +35,8 @@ from . import _build
 __all__ = ["NEG_INF", "dense_attention", "flash_attention",
            "flash_attention_with_lse", "flash_chunk_bwd",
            "flash_attention_fwd_plain", "flash_attention_bwd_plain",
-           "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"]
+           "flash_fwd", "flash_bwd_dq", "flash_bwd_dq_delta",
+           "flash_bwd_dkv"]
 
 NEG_INF = -1e30  # finite mask value: keeps exp() well-defined everywhere
 _KERNEL_HEAD_DIMS = (64, 128)
@@ -142,8 +145,9 @@ def _bwd_plain(q, k, v, g, lse, delta, causal):
 
 
 def _delta(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """δ = rowsum(dO ∘ O) in float32, (b, h, s): computed outside the
-    kernels, as the JAX package does."""
+    """δ = rowsum(dO ∘ O) in float32, (b, h, s): the plain version of
+    what kernel 2 computes in its prologue (the JAX package computes it
+    outside its kernels)."""
     return (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
@@ -174,8 +178,10 @@ def _kernel_lib():
     shape = [i32] * 7 + [ctypes.c_float, i32, ptr]
     lib.flash_fwd.argtypes = [ptr] * 5 + shape
     lib.flash_bwd_dq.argtypes = [ptr] * 7 + shape
+    lib.flash_bwd_dq_delta.argtypes = [ptr] * 8 + shape
     lib.flash_bwd_dkv.argtypes = [ptr] * 8 + shape
-    for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv):
+    for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dq_delta,
+               lib.flash_bwd_dkv):
         fn.restype = i32
     lib.flash_attention_error_string.argtypes = [i32]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -213,13 +219,15 @@ def _check_kernel_inputs(name, tensors, rows=()):
                          f"{tuple(q.shape)}")
 
 
-def _bwd_shapes(name, q, k, v, g, lse, delta):
+def _bwd_shapes(name, q, k, v, g, *rows):
+    """Check dout ``g`` against q and each (b, h, s) row tensor (lse,
+    delta)."""
     _shapes(q, k, v)
     if g.shape != q.shape:
         raise ValueError(f"mpi_tpu_torch: {name}: dout {tuple(g.shape)} "
                          f"must have q's shape {tuple(q.shape)}")
     b, s, h, _ = q.shape
-    for r in (lse, delta):
+    for r in rows:
         if tuple(r.shape) != (b, h, s):
             raise ValueError(f"mpi_tpu_torch: {name} wants lse/delta of "
                              f"shape {(b, h, s)}; got {tuple(r.shape)}")
@@ -285,6 +293,35 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq
 
 
+def flash_bwd_dq_delta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       g: torch.Tensor, lse: torch.Tensor, out: torch.Tensor,
+                       causal: bool = True
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 2 from the forward's ``out``: ``(dq, delta)``, where the
+    kernel computes delta = rowsum(dO∘O) ((b, h, s) float32) for its own
+    rows before its first tile and writes it for kernel 3. CUDA tensors
+    launch the kernel (``flash_bwd_dq.launches``); CPU tensors run the
+    plain version."""
+    _bwd_shapes("flash_bwd_dq_delta", q, k, v, g, lse)
+    if out.shape != q.shape:
+        raise ValueError(f"mpi_tpu_torch: flash_bwd_dq_delta: out "
+                         f"{tuple(out.shape)} must have q's shape "
+                         f"{tuple(q.shape)}")
+    if _device("flash_bwd_dq_delta", q) == "cpu":
+        delta = _delta(out, g)
+        return _bwd_plain(q, k, v, g, lse, delta, causal)[0], delta
+    _check_kernel_inputs("flash_bwd_dq_delta", (q, k, v, g, out), (lse,))
+    b, s, h, _ = q.shape
+    dq = torch.empty_like(q)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    _raise_on(_kernel_lib().flash_bwd_dq_delta(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), out.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        *_dims(q, k, causal)), "flash_bwd_dq_delta")
+    flash_bwd_dq.launches += 1
+    return dq, delta
+
+
 def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                   causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -331,19 +368,19 @@ def flash_chunk_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     softmax whose rows are ``out`` and ``lse`` (b, h, s): the rebuilt
     probabilities ``exp(qk − lse)`` are the global ones, so the returned
     ``(dq, dk, dv)`` are this pair's additive contributions. On CUDA,
-    δ = rowsum(dO∘O) is a torch reduction, then kernels 2 and 3 launch."""
+    kernel 2 computes δ = rowsum(dO∘O) and dq, then kernel 3 reads δ on
+    the same stream."""
     _shapes(q, k, v)
     if _device("flash_chunk_bwd", q) == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, g, causal)
-    delta = _delta(out, g)
-    dq = flash_bwd_dq(q, k, v, g, lse, delta, causal)
+    dq, delta = flash_bwd_dq_delta(q, k, v, g, lse, out, causal)
     dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, causal)
     return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward: kernel 1, saving (q, k, v, out, lse). Backward: δ with
-    torch ops, then kernels 2 and 3 (plain versions for CPU tensors)."""
+    """Forward: kernel 1, saving (q, k, v, out, lse). Backward: kernel 2
+    with δ, then kernel 3 (plain versions for CPU tensors)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):

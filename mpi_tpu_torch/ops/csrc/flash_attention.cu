@@ -12,11 +12,12 @@
 // outputs are written once, in the dtype of their input.
 //
 // Kernel 1 replaces mpi_tpu/ops/attention.py: _flash_kernel_fwd_res; kernel
-// 2, flash_bwd_dq_kernel, replaces _flash_bwd_dq_kernel; kernel 3,
-// flash_bwd_dkv_kernel, replaces _flash_bwd_dkv_kernel. The TPU kernels walk
-// one reduction axis as a sequential grid axis with VMEM scratch; here one
-// thread block owns one output tile and walks that axis in a loop, with its
-// state in registers.
+// 2, flash_bwd_dq_kernel (float32) and flash_bwd_dq_wgmma_kernel (bf16),
+// replaces _flash_bwd_dq_kernel; kernel 3, flash_bwd_dkv_kernel and
+// flash_bwd_dkv_wgmma_kernel, replaces _flash_bwd_dkv_kernel. The TPU
+// kernels walk one reduction axis as a sequential grid axis with VMEM
+// scratch; here one thread block owns one output tile and walks that axis
+// in a loop, with its state in registers.
 //
 // Kernel 1 in bf16 (flash_fwd_wgmma_kernel) is built for Hopper's tensor
 // cores. At the flagship training shape (b 8, s = t 1024, h 8, d 128,
@@ -26,10 +27,9 @@
 // must run near their rate while the loads stay hidden. The design:
 //   * one block per 128 query rows of one (b, h): two consumer warpgroups of
 //     64 rows each and one producer warp, whose first thread issues every
-//     load. 288 threads leave each thread 224 registers at compile time.
-//     (With a whole producer warpgroup, 384 threads, ptxas held the
-//     consumers to the launch's 168 registers and spilled, setmaxnreg
-//     notwithstanding, so the kernel does without setmaxnreg.)
+//     load. ptxas allocates a wgmma kernel's registers by whole warpgroups,
+//     so 288 threads, like 384, leave each thread 168 (setmaxnreg does not
+//     change that); the kernel takes 166.
 //   * TMA (cp.async.bulk.tensor, 4-d tensor maps over the (b, s, h, d)
 //     layouts, made with cuTensorMapEncodeTiled through the runtime's
 //     driver entry point) loads Q once and K/V tiles of 128 keys into a
@@ -58,18 +58,64 @@
 // and spills, C7512; with 64-key tiles it fits but ran no faster); a TMA
 // store of out.
 //
-// Kernels 2 and 3 do 3 and 4 such products at the flagship shape against
-// 84 and 101 MB, so operations bound them (26.1 and 34.8 us). They, and
-// kernel 1 in float32, use mma.sync m16n8k16 (bf16) or FMAs (float32,
-// which exists for exact checks and is slow) in one layout: each warp
-// owns 16 rows of the output tile, the 4 warps of a block share each tile
-// staged in shared memory by double-buffered cp.async, rows padded by 16
-// bytes so a warp's fragment loads hit 32 banks, and p or ds goes through
-// a small per-warp shared tile between the two products. Causal tiles past
-// the diagonal are skipped per block and per warp, and the ragged edge is
-// zero-filled on load and masked, so no shape needs padding outside the
-// kernels. Not done yet for them: wgmma and TMA, warp specialisation, and
-// keeping p in registers.
+// Kernels 2 and 3 in bf16 (flash_bwd_dq_wgmma_kernel and
+// flash_bwd_dkv_wgmma_kernel) do 3 and 4 such products at the flagship
+// shape (26.1 and 34.8 us at the tensor peak) and move 101 MB each (30.2
+// us; kernel 2 also reads out and writes delta), so bytes bound kernel 2
+// and operations kernel 3, both near the line. They keep kernel 1's TMA
+// loads into an mbarrier ring, its two consumer warpgroups of 64 rows that
+// take turns to issue their products, and its way of turning each float32
+// accumulator (p, ds and their transposes) into the bf16 A fragment of the
+// next product in registers. ptxas allocates a wgmma kernel's registers by
+// whole warpgroups, so kernel 1's producer warp (288 threads) leaves each
+// thread 168, setmaxnreg notwithstanding (a producer warpgroup, 384
+// threads, gave the same). Kernel 2 fits that, and keeps kernel 1's block
+// with a two-stage ring. Kernel 3 holds dk and dv (128 registers) beside
+// S^T and dP^T (64) and spilled in it; its block is the two warpgroups
+// alone (256 threads, up to 255 registers), whose warp 0 also issues the
+// loads: each query tile two ahead, into a three-stage ring, once both
+// warpgroups have released the stage.
+//   * kernel 2 (dq): one block per 128 query rows of one (b, h); Q, dO and
+//     out are loaded once, K/V tiles of 64 keys stream, the causal walk
+//     stops at the diagonal. S = Q K^T and dP = dO V^T are SS wgmma,
+//     K-major; ds = p (dP - delta) scale goes to registers and dq += ds K
+//     is RS wgmma with K MN-major through the transpose bit. Before its
+//     first tile each warpgroup takes delta = rowsum(dO * O) of its rows
+//     from shared memory, keeps it in registers and writes it for kernel 3.
+//     Given out == nullptr it instead reads delta from memory: that is the
+//     TPU kernel's interface (dq from q, k, v, dout, lse and delta), kept
+//     so flash_bwd_dq can be held against it alone.
+//   * kernel 3 (dk, dv): one block per 128 keys of one (b, hk), 64 keys
+//     per warpgroup; K and V are loaded once, query tiles of 64 of every
+//     head of the kv head's group stream (member-major), the causal walk
+//     starts at the first tile that reaches the block. S^T = K Q^T and
+//     dP^T = V dO^T are SS; p^T and ds^T go to registers; dv += p^T dO and
+//     dk += ds^T Q are RS with dO and Q MN-major. Each tile's lse and delta
+//     come beside it by cp.async from warp 0 (a (b h, s) float32 row is
+//     16-byte aligned only when s % 4 == 0, which TMA needs). dk, dv: 64
+//     registers each; the kernel takes 254 at d = 128.
+//   * a warpgroup's tiles that the causal mask hides entirely (warpgroup
+//     0's last key tile in kernel 2, warpgroup 1's first query tile of each
+//     head in kernel 3) take their turns and issue nothing, in a loop of
+//     their own: a product under a branch serialises every wgmma of the
+//     kernel (ptxas C7518).
+// Both write each output once, with no atomics. What still holds them
+// back: as in kernel 1, a block runs few tiles at the flagship shape, so
+// its fill and drain weigh; a warpgroup's elementwise step waits for its
+// own products (only the other warpgroup's products overlap it); and the
+// two kernels recompute p, so together they issue 7 products where one
+// fused backward with dq by atomics would issue 5.
+//
+// Kernel 1 in float32, and kernels 2 and 3 in float32, use FMAs (they
+// exist for exact checks and are slow) in one layout: each warp owns 16
+// rows of the output tile in the accumulator layout of mma.sync m16n8,
+// the 4 warps of a block share each tile staged in shared memory by
+// double-buffered cp.async, rows padded by 16 bytes, and p or ds goes
+// through a small per-warp shared tile between the two products. Kernel 2
+// in float32 also computes delta, from out and dout in memory. Causal tiles
+// past the diagonal are skipped per block and per warp, and the ragged
+// edge is zero-filled on load and masked, so no shape needs padding
+// outside the kernels.
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver is reached
                    // through cudaGetDriverEntryPoint, so no -lcuda
@@ -79,6 +125,7 @@
 
 namespace {
 
+// The float32 kernels' tiles.
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlockM = kWarps * 16;  // query rows (kernels 1, 2) or keys (3)
@@ -91,13 +138,9 @@ constexpr float kNegInf = -1e30f;
 template <typename T>
 __host__ __device__ constexpr int vec() { return 16 / static_cast<int>(sizeof(T)); }
 
-// Two neighbouring elements, rounded to T (lower index at lower address).
+// Two neighbouring float32 elements.
 __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a,
-                                           float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // ---- cp.async ---------------------------------------------------------
@@ -136,59 +179,13 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, size_t stride,
   }
 }
 
-// ---- warp-level products ----------------------------------------------
+// ---- warp-level products (float32) -------------------------------------
 //
 // c[j] += A (16 x K) * B (K x 8 NT) for one warp, in the accumulator layout
 // of mma.sync m16n8: lane (g = lane / 4, q = lane % 4) holds c[j][0..1] at
 // row g, columns 8 j + 2 q + {0, 1}, and c[j][2..3] at row g + 8. A is
 // row-major in shared memory (lda elements a row). B is row-major [k][n]
 // when BT is false, or given as its transpose [n][k] when BT is true.
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-template <bool BT, int NT, int K>
-__device__ __forceinline__ void warp_gemm(float (&c)[NT][4],
-                                          const __nv_bfloat16* a, int lda,
-                                          const __nv_bfloat16* b, int ldb,
-                                          int g, int q) {
-#pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t fa[4];
-    fa[0] = ld_pair(a + g * lda + k0 + 2 * q);
-    fa[1] = ld_pair(a + (g + 8) * lda + k0 + 2 * q);
-    fa[2] = ld_pair(a + g * lda + k0 + 8 + 2 * q);
-    fa[3] = ld_pair(a + (g + 8) * lda + k0 + 8 + 2 * q);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int n = 8 * j + g;
-      uint32_t fb[2];
-      if (BT) {
-        fb[0] = ld_pair(b + n * ldb + k0 + 2 * q);
-        fb[1] = ld_pair(b + n * ldb + k0 + 8 + 2 * q);
-      } else {
-        const __nv_bfloat16* col = b + (k0 + 2 * q) * ldb + n;
-        fb[0] = pack(col[0], col[ldb]);
-        fb[1] = pack(col[8 * ldb], col[9 * ldb]);
-      }
-      mma_bf16(c[j], fa, fb);
-    }
-  }
-}
 
 template <bool BT, int NT, int K>
 __device__ __forceinline__ void warp_gemm(float (&c)[NT][4], const float* a,
@@ -219,11 +216,11 @@ __device__ __forceinline__ void zero(float (&c)[NT][4]) {
     for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
 }
 
-// Write a warp's 16 x 8 NT accumulator tile, rounded to T, into shared rows
-// of ld elements.
-template <typename T, int NT>
-__device__ __forceinline__ void stash(T* dst, int ld, const float (&c)[NT][4],
-                                      int g, int q) {
+// Write a warp's 16 x 8 NT accumulator tile into shared rows of ld
+// elements.
+template <int NT>
+__device__ __forceinline__ void stash(float* dst, int ld,
+                                      const float (&c)[NT][4], int g, int q) {
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     store_pair(dst + g * ld + 8 * j + 2 * q, c[j][0], c[j][1]);
@@ -346,7 +343,7 @@ flash_fwd_tile(const float* __restrict__ q, const float* __restrict__ k,
         o[jj][2] *= corr[1];
         o[jj][3] *= corr[1];
       }
-      stash<T, NS>(sPw, LDP, sc, g, qd);  // p in v's dtype
+      stash<NS>(sPw, LDP, sc, g, qd);
       __syncwarp();
       warp_gemm<false, NO, BN>(o, sPw, LDP, sV + buf * BN * LD, LD, g, qd);
       __syncwarp();
@@ -373,19 +370,89 @@ flash_fwd_tile(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---- kernel 2: dq -------------------------------------------------------
+// ---- delta = rowsum(dout * out) ----------------------------------------
+
+// Sum of o[i] * g[i] for i < N, from 16-byte loads.
+template <int N>
+__device__ __forceinline__ float dot(const float* o, const float* g) {
+  float acc = 0.f;
+#pragma unroll
+  for (int c = 0; c < N; c += 4) {
+    const float4 a = *reinterpret_cast<const float4*>(o + c);
+    const float4 b = *reinterpret_cast<const float4*>(g + c);
+    acc = fmaf(a.x, b.x, acc);
+    acc = fmaf(a.y, b.y, acc);
+    acc = fmaf(a.z, b.z, acc);
+    acc = fmaf(a.w, b.w, acc);
+  }
+  return acc;
+}
+template <int N>
+__device__ __forceinline__ float dot(const __nv_bfloat16* o,
+                                     const __nv_bfloat16* g) {
+  float acc = 0.f;
+#pragma unroll
+  for (int c = 0; c < N; c += 8) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o + c);
+    const uint4 b = *reinterpret_cast<const uint4*>(g + c);
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(a2[i]);
+      const float2 y = __bfloat1622float2(b2[i]);
+      acc = fmaf(x.x, y.x, acc);
+      acc = fmaf(x.y, y.y, acc);
+    }
+  }
+  return acc;
+}
+
+// delta = rowsum(dout * out) in float32 for the 64 rows row0 .. row0 + 63
+// of (b, h) row bh, by 128 threads (tid), two to a row: into sm[0 .. 63]
+// (0 past s) and, for rows < s, delta_out. The caller synchronises the 128
+// threads before it reads sm.
+template <int D>
+__device__ __forceinline__ void rows_delta(const float* __restrict__ out,
+                                           const float* __restrict__ dout,
+                                           float* __restrict__ delta_out,
+                                           float* sm, int tid, int row0,
+                                           int s, int h, int bh) {
+  const int r = tid / 2, half = tid % 2, row = row0 + r;
+  float acc = 0.f;
+  if (row < s) {
+    const size_t off =
+        ((static_cast<size_t>(bh / h) * s + row) * h + bh % h) * D +
+        half * (D / 2);
+    acc = dot<D / 2>(out + off, dout + off);
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  if (half == 0) {
+    sm[r] = acc;
+    if (row < s) delta_out[static_cast<size_t>(bh) * s + row] = acc;
+  }
+}
+
+// ---- kernel 2, float32: dq ------------------------------------------------
 //
 // One block per (query tile of 64 rows, b * h). Loops over key tiles of 32
 // up to the diagonal; p = exp(q k * scale - lse), ds = p (dp - delta) scale,
-// dq += ds K accumulates in float32 registers and is written once.
+// dq += ds K accumulates in float32 registers and is written once. With
+// `out` given, the block first computes delta for its rows from out and
+// dout and writes it to delta_out; else it reads `delta`. (bf16 takes
+// flash_bwd_dq_wgmma_kernel below.)
 
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void
-flash_bwd_dq_tile(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_tile(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ lse,
-                  const float* __restrict__ delta, T* __restrict__ dq, int s,
-                  int t, int h, int hk, int causal, float scale, int bh) {
+                  const float* __restrict__ delta,
+                  const float* __restrict__ out,
+                  float* __restrict__ delta_out, float* __restrict__ dq,
+                  int s, int t, int h, int hk, int causal, float scale,
+                  int bh) {
+  using T = float;
   constexpr int BM = kBlockM, BN = kDqBlockN;
   constexpr int LD = D + vec<T>(), LDP = BN + vec<T>();
   constexpr int NS = BN / 8, NO = D / 8;
@@ -395,6 +462,7 @@ flash_bwd_dq_tile(const T* __restrict__ q, const T* __restrict__ k,
   T* sK = sO + BM * LD;      // two buffers
   T* sV = sK + 2 * BN * LD;  // two buffers
   T* sS = sV + 2 * BN * LD;  // one 16 x BN ds tile per warp
+  float* sD = sS + kWarps * 16 * LDP;  // delta of the BM rows
 
   const int m0 = reversed_tile() * BM;
   const int bi = bh / h, hi = bh % h, kvh = hi / (h / hk);
@@ -417,13 +485,17 @@ flash_bwd_dq_tile(const T* __restrict__ q, const T* __restrict__ k,
   load_tile<T, BN, D>(sV, vb, kv_stride, 0, t);
   cp_async_commit();
 
+  if (out != nullptr) {
+    rows_delta<D>(out, dout, delta_out, sD, threadIdx.x, m0, s, h, bh);
+    __syncthreads();
+  }
   float lse_r[2], delta_r[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row_w + g + 8 * r;
     const size_t i = static_cast<size_t>(bh) * s + row;
     lse_r[r] = row < s ? lse[i] : 0.f;
-    delta_r[r] = row < s ? delta[i] : 0.f;
+    delta_r[r] = row >= s ? 0.f : out != nullptr ? sD[row - m0] : delta[i];
   }
   float acc[NO][4];
   zero(acc);
@@ -463,7 +535,7 @@ flash_bwd_dq_tile(const T* __restrict__ q, const T* __restrict__ k,
           const float p = ok ? expf(sc[jj][e] * scale - lse_r[r]) : 0.f;
           sc[jj][e] = p * (dp[jj][e] - delta_r[r]) * scale;
         }
-      stash<T, NS>(sSw, LDP, sc, g, qd);  // ds in k's dtype
+      stash<NS>(sSw, LDP, sc, g, qd);
       __syncwarp();
       warp_gemm<false, NO, BN>(acc, sSw, LDP, sKj, LD, g, qd);
       __syncwarp();
@@ -484,23 +556,26 @@ flash_bwd_dq_tile(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- kernel 3: dk, dv -----------------------------------------------------
+// ---- kernel 3, float32: dk, dv -------------------------------------------
 //
 // One block per (key tile of 64, b * hk). Loops over the group's query heads
 // and, for each, over query tiles of 32 from the first one that reaches the
 // key tile when causal. Works on the transposed products (keys as rows):
 // p^T = exp(k q * scale - lse), dv += p^T dO, ds^T = p^T (dp^T - delta)
 // scale, dk += ds^T Q. dk and dv accumulate in float32 registers and are
-// written once per kv head: no atomics.
+// written once per kv head: no atomics. (bf16 takes
+// flash_bwd_dkv_wgmma_kernel below.)
 
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void
-flash_bwd_dkv_tile(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_tile(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const float* __restrict__ dout,
                    const float* __restrict__ lse,
-                   const float* __restrict__ delta, T* __restrict__ dk,
-                   T* __restrict__ dv, int s, int t, int h, int hk,
+                   const float* __restrict__ delta, float* __restrict__ dk,
+                   float* __restrict__ dv, int s, int t, int h, int hk,
                    int causal, float scale, int bkv) {
+  using T = float;
   constexpr int BK = kBlockM, BQ = kDkvBlockQ;
   constexpr int LD = D + vec<T>(), LDP = BQ + vec<T>();
   constexpr int NS = BQ / 8, NO = D / 8;
@@ -589,7 +664,7 @@ flash_bwd_dkv_tile(const T* __restrict__ q, const T* __restrict__ k,
           const bool ok = key < t && col < s && (!causal || col >= key);
           sc[jj][e] = ok ? expf(sc[jj][e] * scale - lq[jj][e & 1]) : 0.f;
         }
-      stash<T, NS>(sPw, LDP, sc, g, qd);  // p^T in dout's dtype
+      stash<NS>(sPw, LDP, sc, g, qd);
       __syncwarp();
       warp_gemm<false, NO, BQ>(dv_acc, sPw, LDP, sOi, LD, g, qd);
       warp_gemm<true, NS, D>(dp, sVw, LD, sOi, LD, g, qd);
@@ -599,7 +674,7 @@ flash_bwd_dkv_tile(const T* __restrict__ q, const T* __restrict__ k,
         for (int e = 0; e < 4; ++e)
           sc[jj][e] = sc[jj][e] * (dp[jj][e] - dlt[jj][e & 1]) * scale;
       __syncwarp();  // every lane has read p^T
-      stash<T, NS>(sPw, LDP, sc, g, qd);  // ds^T in q's dtype
+      stash<NS>(sPw, LDP, sc, g, qd);
       __syncwarp();
       warp_gemm<false, NO, BQ>(dk_acc, sPw, LDP, sQi, LD, g, qd);
       __syncwarp();
@@ -647,33 +722,38 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta,
+                    const float* __restrict__ out,
+                    float* __restrict__ delta_out, float* __restrict__ dq,
                     int s, int t, int h, int hk, int causal, float scale,
                     int rows) {
   const int bh = blockIdx.y + gridDim.y * blockIdx.z;
   if (bh < rows) {
-    flash_bwd_dq_tile<T, D>(q, k, v, dout, lse, delta, dq, s, t, h, hk,
-                            causal, scale, bh);
+    flash_bwd_dq_tile<D>(q, k, v, dout, lse, delta, out, delta_out, dq, s,
+                         t, h, hk, causal, scale, bh);
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int s, int t, int h, int hk,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int s, int t, int h, int hk,
                      int causal, float scale, int rows) {
   const int bkv = blockIdx.y + gridDim.y * blockIdx.z;
   if (bkv < rows) {
-    flash_bwd_dkv_tile<T, D>(q, k, v, dout, lse, delta, dk, dv, s, t, h, hk,
-                             causal, scale, bkv);
+    flash_bwd_dkv_tile<D>(q, k, v, dout, lse, delta, dk, dv, s, t, h, hk,
+                          causal, scale, bkv);
   }
 }
 
@@ -703,9 +783,24 @@ struct FwdSmem {
   uint64_t v_full[kFwdStages], v_empty[kFwdStages];
 };
 
-template <int D>
-constexpr int fwd_wgmma_smem() {
-  return static_cast<int>(sizeof(FwdSmem<D>)) + 1024;  // + alignment slack
+// Dynamic shared memory of a wgmma kernel whose layout is Smem, and that
+// layout at the first 1024-byte boundary (as the 128-byte swizzle needs).
+template <typename Smem>
+constexpr int wgmma_smem() {
+  return static_cast<int>(sizeof(Smem)) + 1024;  // + alignment slack
+}
+template <typename Smem>
+__device__ __forceinline__ Smem& aligned_smem() {
+  extern __shared__ unsigned char smem_raw[];
+  return *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+}
+
+// The launch number of this block (grid x fastest).
+__device__ __forceinline__ long long launch_index() {
+  return blockIdx.x + static_cast<long long>(gridDim.x) *
+                          (blockIdx.y + static_cast<long long>(gridDim.y) *
+                                            blockIdx.z);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -887,6 +982,30 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+// d[32] (+)= A . B for m64n64k16: A and B from shared memory, both
+// K-major. scale_d 0 ignores d's old value.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
                                          const uint32_t (&a)[4], uint64_t b) {
@@ -921,6 +1040,17 @@ __device__ __forceinline__ void named_sync(int id) {
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
 }
+// The 128 threads of one warpgroup.
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+// A backward warpgroup's two turns of one tile, issuing nothing.
+__device__ __forceinline__ void pass_turns(int wg) {
+  named_sync(1 + wg);
+  named_arrive(2 - wg);
+  named_sync(1 + wg);
+  named_arrive(2 - wg);
+}
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
@@ -941,14 +1071,15 @@ __device__ __forceinline__ void issue_s(float (&sc)[64], uint64_t q_desc,
   }
 }
 
-// Issue O += P V against the V stage that v_desc describes: a step of 16
-// keys moves 16 rows of 128 bytes.
-template <int D>
+// Issue O += P V against the V stage that v_desc describes, over KS steps
+// of 16 keys: a step moves 16 rows of 128 bytes. (The backward kernels use
+// it for every RS product: dq += ds K, dv += p^T dO, dk += ds^T Q.)
+template <int D, int KS = 8>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
-                                         const uint32_t (&pa)[8][4],
+                                         const uint32_t (&pa)[KS][4],
                                          uint64_t v_desc) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < KS; ++kk)
     wgmma_pv<D>(o, pa[kk], v_desc + kk * (16 * 128 / 16));
 }
 
@@ -1010,13 +1141,14 @@ __device__ __forceinline__ void rescale(float (&o)[N], const float (&corr)[2]) {
   }
 }
 
-// p, rounded to bf16, as the A fragments of the 8 key steps of P V: key
+// p, rounded to bf16, as the A fragments of the KS key steps of P V: key
 // step kk is S columns 16 kk .. 16 kk + 15, accumulator blocks 2 kk and
 // 2 kk + 1.
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[8][4],
-                                       const float (&sc)[64]) {
+template <int KS>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[KS][4],
+                                       const float (&sc)[8 * KS]) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
     pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
     pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
@@ -1123,19 +1255,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                  const FwdShape f) {
   constexpr int NB = D / 64;
-  const long long launch =
-      blockIdx.x + static_cast<long long>(gridDim.x) *
-                       (blockIdx.y + static_cast<long long>(gridDim.y) *
-                                         blockIdx.z);
+  const long long launch = launch_index();
   if (launch >= f.rows * f.tiles) return;
   const int bh = static_cast<int>(launch % f.rows);
   const int m0 = (f.tiles - 1 - static_cast<int>(launch / f.rows)) * kFwdRows;
   int n_tiles = (f.t + kFwdKeys - 1) / kFwdKeys;
   if (f.causal) n_tiles = min(n_tiles, (m0 + kFwdRows - 1) / kFwdKeys + 1);
 
-  extern __shared__ unsigned char smem_raw[];
-  FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  FwdSmem<D>& sm = aligned_smem<FwdSmem<D>>();
   if (threadIdx.x == 0) {
     mbar_init(&sm.q_full, 1);
     for (int i = 0; i < kFwdStages; ++i) {
@@ -1178,6 +1305,521 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+// ---- kernels 2 and 3, bf16: wgmma and TMA ---------------------------------
+//
+// The layouts are kernel 1's: every tile is d / 64 column blocks of
+// (rows x 64) bf16, 128-byte swizzled, 1024-byte aligned. A block owns 128
+// rows of its output (query rows for kernel 2, keys for kernel 3), one
+// warpgroup 64 of them, and streams tiles of 64 rows of the other side
+// (keys, or queries) through a ring of stages. An SS product reads both
+// operands K-major (a 16-deep step of d moves 32 bytes inside a block); an
+// RS product reads its B tile MN-major (a 16-deep step moves 16 rows of 128
+// bytes; the next 64 columns of d are the next block).
+//
+// Kernel 2 keeps kernel 1's block, two consumer warpgroups and a producer
+// warp (288 threads, 168 registers a thread, which it fits). Kernel 3 does
+// not fit them: its block is the two consumer warpgroups alone (256
+// threads, up to 255 registers), and its warp 0 issues the loads (see the
+// note at the top).
+
+constexpr int kBwdRows = 128;    // rows of the output per block
+constexpr int kBwdTile = 64;     // rows of a streamed tile
+constexpr int kDqStages = 2;     // ring depths
+constexpr int kDkvStages = 3;
+constexpr int kDqThreads = kFwdThreads;
+constexpr int kDkvThreads = 256;
+
+template <int D>
+struct DqSmem {
+  __nv_bfloat16 q[kBwdRows * D];
+  __nv_bfloat16 dout[kBwdRows * D];
+  __nv_bfloat16 out[kBwdRows * D];  // when delta is computed
+  __nv_bfloat16 k[kDqStages][kBwdTile * D];
+  __nv_bfloat16 v[kDqStages][kBwdTile * D];
+  float delta[kBwdRows];
+  uint64_t q_full;
+  uint64_t kv_full[kDqStages], kv_empty[kDqStages];
+};
+
+template <int D>
+struct DkvSmem {
+  __nv_bfloat16 k[kBwdRows * D];
+  __nv_bfloat16 v[kBwdRows * D];
+  __nv_bfloat16 q[kDkvStages][kBwdTile * D];
+  __nv_bfloat16 dout[kDkvStages][kBwdTile * D];
+  alignas(128) float lse[kDkvStages][kBwdTile];  // of the tile's queries
+  alignas(128) float delta[kDkvStages][kBwdTile];
+  uint64_t kv_full;
+  uint64_t q_full[kDkvStages], q_empty[kDkvStages];
+};
+
+struct BwdArgs {
+  const __nv_bfloat16* out;   // kernel 2: given, delta is computed from it
+  const __nv_bfloat16* dout;
+  const float* lse;
+  const float* delta;         // kernel 2 reads it when out is null
+  float* delta_out;           // kernel 2 with out
+  __nv_bfloat16* o0;          // dq or dk
+  __nv_bfloat16* o1;          // dv
+  int s, t, h, hk, causal, tiles;
+  long long rows;             // b * h (kernel 2) or b * hk (kernel 3)
+  float scale;
+};
+
+// One float of global memory into shared memory by cp.async, or a zero
+// when !fill; cp_async_arrive(bar) makes `bar` count this thread's arrival
+// once all its cp.async have landed.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool fill) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)), "l"(src), "r"(fill ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(smem_addr(bar)) : "memory");
+}
+
+// d (64 x 64) = A B^T over depth D, both K-major in shared memory: a_desc
+// names a warpgroup's 64 rows of a kBwdRows-row A tile, b_desc a
+// kBwdTile-row B tile.
+template <int D>
+__device__ __forceinline__ void issue_ss64(float (&d)[32], uint64_t a_desc,
+                                           uint64_t b_desc) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int blk = kk / 4, step = (kk % 4) * 2;
+    wgmma_ss_n64(d, a_desc + blk * (kBwdRows * 128 / 16) + step,
+                 b_desc + blk * (kBwdTile * 128 / 16) + step, kk > 0);
+  }
+}
+
+// Write a warp's accumulator rows to bf16 memory: the thread's pairs of
+// its row + 8 r (r = 0, 1) at columns 8 j + 2 qd of the row at dst.
+template <int D>
+__device__ __forceinline__ void store_row(__nv_bfloat16* dst,
+                                          const float (&acc)[D / 2], int r,
+                                          int qd) {
+#pragma unroll
+  for (int jj = 0; jj < D / 8; ++jj)
+    *reinterpret_cast<uint32_t*>(dst + 8 * jj + 2 * qd) =
+        pack_bf16(acc[4 * jj + 2 * r], acc[4 * jj + 2 * r + 1]);
+}
+
+// Wait until the stage of streamed tile `it` in a ring of STAGES is free:
+// the consumers have released the tile STAGES before it (at once for the
+// first round).
+template <int STAGES>
+__device__ __forceinline__ void wait_stage(uint64_t* empty, int it) {
+  mbar_wait(empty, ((it / STAGES) & 1) ^ 1);
+}
+
+// Kernel 2's loads, all from the producer warp's first thread.
+template <int D>
+struct DqLoads {
+  const CUtensorMap* q;
+  const CUtensorMap* k;
+  const CUtensorMap* v;
+  const CUtensorMap* dout;
+  const CUtensorMap* out;  // null unless delta is computed
+  int bi, hi, kvh, m0, n_tiles;
+
+  __device__ __forceinline__ void q_rows(DqSmem<D>& sm) const {
+    mbar_expect_tx(&sm.q_full, (out != nullptr ? 3 : 2) * kBwdRows * D * 2);
+    for (int b = 0; b < D / 64; ++b) {
+      tma_load(sm.q + b * kBwdRows * 64, q, &sm.q_full, 64 * b, hi, m0, bi);
+      tma_load(sm.dout + b * kBwdRows * 64, dout, &sm.q_full, 64 * b, hi, m0,
+               bi);
+      if (out != nullptr)
+        tma_load(sm.out + b * kBwdRows * 64, out, &sm.q_full, 64 * b, hi, m0,
+                 bi);
+    }
+  }
+  // Key tile `it` (keys (n_tiles - 1 - it) * 64 ..) into its stage.
+  __device__ __forceinline__ void kv_tile(DqSmem<D>& sm, int it) const {
+    const int st = it % kDqStages, n0 = (n_tiles - 1 - it) * kBwdTile;
+    wait_stage<kDqStages>(&sm.kv_empty[st], it);
+    mbar_expect_tx(&sm.kv_full[st], 2 * kBwdTile * D * 2);
+    for (int b = 0; b < D / 64; ++b) {
+      tma_load(sm.k[st] + b * kBwdTile * 64, k, &sm.kv_full[st], 64 * b, kvh,
+               n0, bi);
+      tma_load(sm.v[st] + b * kBwdTile * 64, v, &sm.kv_full[st], 64 * b, kvh,
+               n0, bi);
+    }
+  }
+};
+
+// One consumer warpgroup of kernel 2: 64 query rows from row_wg, against
+// key tiles n_tiles - 1 .. 0 (the masked ones first). Thread (warp, g, qd)
+// holds rows row_w + g and + 8 of every accumulator, as in fwd_consumer.
+template <int D>
+__device__ __forceinline__ void dq_consumer(DqSmem<D>& sm, const BwdArgs& f,
+                                            const DqLoads<D>& ld, int wg,
+                                            int bh) {
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, qd = lane % 4;
+  const int m0 = ld.m0, n_tiles = ld.n_tiles;
+  const int row_wg = m0 + 64 * wg, row_w = row_wg + 16 * warp;
+
+  mbar_wait(&sm.q_full, 0);
+  // delta of this warpgroup's rows from out and dO in shared memory (zero
+  // past s): two threads to a row, each over half its 16-byte pieces. The
+  // two tiles share one swizzle, so a row's pieces pair up where they lie.
+  if (ld.out != nullptr) {
+    const int r = 64 * wg + tid / 2;
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 16; ++i) {
+      const int piece = (tid % 2) * (D / 16) + i;
+      const int at = (piece / 8) * kBwdRows * 64 + r * 64 + (piece % 8) * 8;
+      acc += dot<8>(sm.out + at, sm.dout + at);
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (tid % 2 == 0) {
+      sm.delta[r] = acc;
+      if (m0 + r < f.s)
+        f.delta_out[static_cast<size_t>(bh) * f.s + m0 + r] = acc;
+    }
+    warpgroup_sync(3 + wg);
+  }
+  float neg_lse[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_w + g + 8 * r;
+    const size_t i = static_cast<size_t>(bh) * f.s + row;
+    neg_lse[r] = row < f.s ? -f.lse[i] * kLog2e : 0.f;
+    dl[r] = row >= f.s            ? 0.f
+            : ld.out != nullptr ? sm.delta[row - m0]
+                                : f.delta[i];
+  }
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  float sc[32], dp[32];
+  uint32_t ds[4][4];
+  const uint64_t q_desc = wgmma_desc(sm.q + 64 * wg * 64, 16, 1024);
+  const uint64_t o_desc = wgmma_desc(sm.dout + 64 * wg * 64, 16, 1024);
+  const uint64_t k_desc = wgmma_desc(sm.k[0], 16, 1024);
+  const uint64_t v_desc = wgmma_desc(sm.v[0], 16, 1024);
+  const uint64_t kt_desc = wgmma_desc(sm.k[0], kBwdTile * 128, 1024);
+  constexpr int stage = kBwdTile * D * 2 / 16;
+  const float c = f.scale * kLog2e;
+
+  // The warpgroups take turns to issue their products (named barriers 1
+  // and 2, warpgroup 0 first). Under a causal mask warpgroup 0's first
+  // n_dead key tiles lie past its diagonal: it takes their turns and
+  // issues nothing. (A product under a branch would serialise every
+  // wgmma of the kernel, ptxas C7518.)
+  const int n_dead =
+      f.causal ? max(0, n_tiles - 1 - (row_wg + 63) / kBwdTile) : 0;
+  if (n_tiles > 0 && wg == 0) named_arrive(1);
+  for (int it = 0; it < n_dead; ++it) {
+    mbar_wait(&sm.kv_full[it % kDqStages], (it / kDqStages) & 1);
+    pass_turns(wg);
+    mbar_arrive(&sm.kv_empty[it % kDqStages]);
+  }
+  for (int it = n_dead; it < n_tiles; ++it) {
+    const int st = it % kDqStages;
+    const int n0 = (n_tiles - 1 - it) * kBwdTile;
+    mbar_wait(&sm.kv_full[st], (it / kDqStages) & 1);
+    named_sync(1 + wg);
+    wgmma_fence();
+    issue_ss64<D>(sc, q_desc, k_desc + st * stage);
+    issue_ss64<D>(dp, o_desc, v_desc + st * stage);
+    wgmma_commit();
+    named_arrive(2 - wg);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    const bool edge =
+        n0 + kBwdTile > f.t || (f.causal && n0 + kBwdTile - 1 > row_w);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float p = fast_exp2(fmaf(sc[4 * jj + e], c, neg_lse[r]));
+        if (edge) {
+          const int row = row_w + g + 8 * r;
+          const int col = n0 + 8 * jj + 2 * qd + (e & 1);
+          if (col >= f.t || (f.causal && col > row)) p = 0.f;
+        }
+        sc[4 * jj + e] = p * (dp[4 * jj + e] - dl[r]) * f.scale;
+      }
+    pack_p(ds, sc);  // ds in k's dtype
+    named_sync(1 + wg);
+    fence_regs(ds);
+    fence_regs(dq);
+    wgmma_fence();
+    issue_pv<D, 4>(dq, ds, kt_desc + st * stage);
+    wgmma_commit();
+    named_arrive(2 - wg);
+    wgmma_wait<0>();
+    fence_regs(ds);
+    fence_regs(dq);
+    mbar_arrive(&sm.kv_empty[st]);
+  }
+  if (n_tiles > 0 && wg == 0) named_sync(1);  // warpgroup 1's last turn
+
+  const int bi = bh / f.h, hi = bh % f.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_w + g + 8 * r;
+    if (row < f.s)
+      store_row<D>(f.o0 + ((static_cast<size_t>(bi) * f.s + row) * f.h + hi) *
+                              D,
+                   dq, r, qd);
+  }
+}
+
+// Kernel 2, bf16. Launch L takes query tile tiles - 1 - L / rows of row
+// L % rows: the heaviest causal tiles start first.
+template <int D>
+__global__ void __launch_bounds__(kDqThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const __grid_constant__ CUtensorMap out_map,
+                          const BwdArgs f) {
+  const long long launch = launch_index();
+  if (launch >= f.rows * f.tiles) return;
+  const int bh = static_cast<int>(launch % f.rows);
+  const int m0 = (f.tiles - 1 - static_cast<int>(launch / f.rows)) * kBwdRows;
+  int n_tiles = (f.t + kBwdTile - 1) / kBwdTile;
+  if (f.causal) n_tiles = min(n_tiles, (m0 + kBwdRows - 1) / kBwdTile + 1);
+  const int hi = bh % f.h;
+  const DqLoads<D> ld{&q_map, &k_map, &v_map, &do_map,
+                      f.out != nullptr ? &out_map : nullptr, bh / f.h, hi,
+                      hi / (f.h / f.hk), m0, n_tiles};
+
+  DqSmem<D>& sm = aligned_smem<DqSmem<D>>();
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int i = 0; i < kDqStages; ++i) {
+      mbar_init(&sm.kv_full[i], 1);
+      mbar_init(&sm.kv_empty[i], 256);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= 256) {  // the producer warp
+    if (threadIdx.x == 256) {
+      ld.q_rows(sm);
+      for (int it = 0; it < n_tiles; ++it) ld.kv_tile(sm, it);
+    }
+  } else {  // the consumer warpgroups
+    dq_consumer<D>(sm, f, ld, threadIdx.x / 128, bh);
+  }
+}
+
+// Kernel 3's loads, all from warp 0.
+template <int D>
+struct DkvLoads {
+  const CUtensorMap* q;
+  const CUtensorMap* k;
+  const CUtensorMap* v;
+  const CUtensorMap* dout;
+  const float* lse;
+  const float* delta;
+  int bi, kvh, group, h, s, n0, q_start, n_qt, n_it;
+
+  __device__ __forceinline__ void kv_rows(DkvSmem<D>& sm) const {
+    mbar_expect_tx(&sm.kv_full, 2 * kBwdRows * D * 2);
+    for (int b = 0; b < D / 64; ++b) {
+      tma_load(sm.k + b * kBwdRows * 64, k, &sm.kv_full, 64 * b, kvh, n0, bi);
+      tma_load(sm.v + b * kBwdRows * 64, v, &sm.kv_full, 64 * b, kvh, n0, bi);
+    }
+  }
+  // Query tile `it` (group member it / n_qt, queries q_start + 64 (it %
+  // n_qt) ..) into its stage: Q and dO by TMA from lane 0, the tile's lse
+  // and delta by cp.async from every lane (a (b h, s) row of them is
+  // 16-byte aligned only when s % 4 == 0, which TMA needs; zeros past s).
+  __device__ __forceinline__ void q_tile(DkvSmem<D>& sm, int it,
+                                         int lane) const {
+    const int st = it % kDkvStages;
+    const int head = kvh * group + it / n_qt;
+    const int q0 = q_start + (it % n_qt) * kBwdTile;
+    wait_stage<kDkvStages>(&sm.q_empty[st], it);
+    if (lane == 0) {
+      mbar_expect_tx(&sm.q_full[st], 2 * kBwdTile * D * 2);
+      for (int b = 0; b < D / 64; ++b) {
+        tma_load(sm.q[st] + b * kBwdTile * 64, q, &sm.q_full[st], 64 * b,
+                 head, q0, bi);
+        tma_load(sm.dout[st] + b * kBwdTile * 64, dout, &sm.q_full[st],
+                 64 * b, head, q0, bi);
+      }
+    }
+    const size_t row0 = (static_cast<size_t>(bi) * h + head) * s;
+    for (int i = lane; i < kBwdTile; i += 32) {
+      const int col = q0 + i;
+      const size_t at = row0 + (col < s ? col : 0);
+      cp_async4(&sm.lse[st][i], lse + at, col < s);
+      cp_async4(&sm.delta[st][i], delta + at, col < s);
+    }
+    cp_async_arrive(&sm.q_full[st]);
+  }
+};
+
+// One consumer warpgroup of kernel 3: 64 keys from key_wg, against n_it
+// query tiles (group member major, tiles ascending from q_start). Thread
+// (warp, g, qd) holds keys key_w + g and + 8 of every accumulator; in S^T
+// and dP^T, entry 4 j + e is query 8 j + 2 qd + (e & 1) of the tile.
+template <int D>
+__device__ __forceinline__ void dkv_consumer(DkvSmem<D>& sm,
+                                             const BwdArgs& f,
+                                             const DkvLoads<D>& ld, int wg,
+                                             int bkv) {
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, qd = lane % 4;
+  const int n_qt = ld.n_qt, n_it = ld.n_it, q_start = ld.q_start;
+  const int key_wg = ld.n0 + 64 * wg, key_w = key_wg + 16 * warp;
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  float sc[32], dp[32];
+  uint32_t pa[4][4], da[4][4];
+  const uint64_t k_desc = wgmma_desc(sm.k + 64 * wg * 64, 16, 1024);
+  const uint64_t v_desc = wgmma_desc(sm.v + 64 * wg * 64, 16, 1024);
+  const uint64_t q_desc = wgmma_desc(sm.q[0], 16, 1024);
+  const uint64_t o_desc = wgmma_desc(sm.dout[0], 16, 1024);
+  const uint64_t qt_desc = wgmma_desc(sm.q[0], kBwdTile * 128, 1024);
+  const uint64_t ot_desc = wgmma_desc(sm.dout[0], kBwdTile * 128, 1024);
+  constexpr int stage = kBwdTile * D * 2 / 16;
+  const float c = f.scale * kLog2e;
+  // Release tile `it`'s stage; warp 0 then refills the stage of the tile
+  // before it, which both warpgroups have released by now.
+  auto done = [&](int it) {
+    mbar_arrive(&sm.q_empty[it % kDkvStages]);
+    if (threadIdx.x < 32 && it >= 1 && it - 1 + kDkvStages < n_it)
+      ld.q_tile(sm, it - 1 + kDkvStages, threadIdx.x);
+  };
+
+  mbar_wait(&sm.kv_full, 0);
+  // Turns as in dq_consumer. Under a causal mask warpgroup 1's first
+  // n_dead query tiles of each group member lie before its first key: it
+  // takes their turns and issues nothing.
+  const int n_dead =
+      f.causal ? min(n_qt, max(0, (key_wg - q_start) / kBwdTile)) : 0;
+  if (n_it > 0 && wg == 0) named_arrive(1);
+  for (int it = 0; it < n_it;) {
+    for (int j = 0; j < n_dead; ++j, ++it) {
+      mbar_wait(&sm.q_full[it % kDkvStages], (it / kDkvStages) & 1);
+      pass_turns(wg);
+      done(it);
+    }
+    for (int j = n_dead; j < n_qt; ++j, ++it) {
+      const int st = it % kDkvStages;
+      const int q0 = q_start + j * kBwdTile;
+      mbar_wait(&sm.q_full[st], (it / kDkvStages) & 1);
+      named_sync(1 + wg);
+      wgmma_fence();
+      issue_ss64<D>(sc, k_desc, q_desc + st * stage);
+      issue_ss64<D>(dp, v_desc, o_desc + st * stage);
+      wgmma_commit();
+      named_arrive(2 - wg);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      const bool edge = q0 + kBwdTile > f.s || key_w + 16 > f.t ||
+                        (f.causal && q0 < key_w + 15);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(sm.lse[st] + 8 * jj + 2 * qd);
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(sm.delta[st] + 8 * jj + 2 * qd);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lse = e & 1 ? l2.y : l2.x;
+          float p = fast_exp2(fmaf(sc[4 * jj + e], c, -lse * kLog2e));
+          if (edge) {
+            const int key = key_w + g + 8 * (e >> 1);
+            const int col = q0 + 8 * jj + 2 * qd + (e & 1);
+            if (col >= f.s || key >= f.t || (f.causal && col < key)) p = 0.f;
+          }
+          sc[4 * jj + e] = p;
+          dp[4 * jj + e] =
+              p * (dp[4 * jj + e] - (e & 1 ? d2.y : d2.x)) * f.scale;
+        }
+      }
+      pack_p(pa, sc);  // p^T in dout's dtype
+      pack_p(da, dp);  // ds^T in q's dtype
+      named_sync(1 + wg);
+      fence_regs(pa);
+      fence_regs(da);
+      fence_regs(dk);
+      fence_regs(dv);
+      wgmma_fence();
+      issue_pv<D, 4>(dv, pa, ot_desc + st * stage);
+      issue_pv<D, 4>(dk, da, qt_desc + st * stage);
+      wgmma_commit();
+      named_arrive(2 - wg);
+      wgmma_wait<0>();
+      fence_regs(pa);
+      fence_regs(da);
+      fence_regs(dk);
+      fence_regs(dv);
+      done(it);
+    }
+  }
+  if (n_it > 0 && wg == 0) named_sync(1);  // warpgroup 1's last turn
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key_w + g + 8 * r;
+    if (key < f.t) {
+      const size_t off =
+          ((static_cast<size_t>(ld.bi) * f.t + key) * f.hk + ld.kvh) * D;
+      store_row<D>(f.o0 + off, dk, r, qd);
+      store_row<D>(f.o1 + off, dv, r, qd);
+    }
+  }
+}
+
+// Kernel 3, bf16. Launch L takes key tile L / rows of row L % rows: under
+// a causal mask the first key tiles see the most queries, so they start
+// first.
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap do_map,
+                           const BwdArgs f) {
+  const long long launch = launch_index();
+  if (launch >= f.rows * f.tiles) return;
+  const int bkv = static_cast<int>(launch % f.rows);
+  const int n0 = static_cast<int>(launch / f.rows) * kBwdRows;
+  // Query rows before n0 see none of these keys under the causal mask.
+  const int q_start = f.causal ? (n0 / kBwdTile) * kBwdTile : 0;
+  const int n_qt =
+      q_start < f.s ? (f.s - q_start + kBwdTile - 1) / kBwdTile : 0;
+  const int group = f.h / f.hk;
+  const DkvLoads<D> ld{&q_map, &k_map, &v_map, &do_map, f.lse, f.delta,
+                       bkv / f.hk, bkv % f.hk, group, f.h, f.s, n0,
+                       q_start, n_qt, group * n_qt};
+
+  DkvSmem<D>& sm = aligned_smem<DkvSmem<D>>();
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.kv_full, 1);
+    for (int i = 0; i < kDkvStages; ++i) {
+      mbar_init(&sm.q_full[i], 1 + 32);  // TMA's bytes, warp 0's cp.async
+      mbar_init(&sm.q_empty[i], kDkvThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0) ld.kv_rows(sm);
+    for (int it = 0; it < min(kDkvStages, ld.n_it); ++it)
+      ld.q_tile(sm, it, threadIdx.x);
+  }
+  dkv_consumer<D>(sm, f, ld, threadIdx.x / 128, bkv);
+}
+
 // ---- launches -------------------------------------------------------------
 
 dim3 row_grid(int tiles, int rows) {
@@ -1198,33 +1840,50 @@ struct Args {
   int b, s, t, h, hk, causal;
   float scale;
   cudaStream_t stream;
+  const void* out = nullptr;  // kernel 2: given, it computes delta from it
+  void* delta_out = nullptr;  // ... into this (b, h, s) float32 buffer
 };
 
-template <typename T, int D>
+template <int D>
 constexpr int fwd_smem() {
-  return ((kBlockM + 4 * kFwdBlockN) * (D + vec<T>()) +
-          kWarps * 16 * (kFwdBlockN + vec<T>())) *
-         static_cast<int>(sizeof(T));
+  return ((kBlockM + 4 * kFwdBlockN) * (D + vec<float>()) +
+          kWarps * 16 * (kFwdBlockN + vec<float>())) *
+         static_cast<int>(sizeof(float));
 }
-template <typename T, int D>
-constexpr int dq_smem() {
-  return ((2 * kBlockM + 4 * kDqBlockN) * (D + vec<T>()) +
-          kWarps * 16 * (kDqBlockN + vec<T>())) *
-         static_cast<int>(sizeof(T));
+template <int D>
+constexpr int dq_smem() {  // + the delta of the block's rows
+  return ((2 * kBlockM + 4 * kDqBlockN) * (D + vec<float>()) +
+          kWarps * 16 * (kDqBlockN + vec<float>()) + kBlockM) *
+         static_cast<int>(sizeof(float));
 }
-template <typename T, int D>
+template <int D>
 constexpr int dkv_smem() {
-  return ((2 * kBlockM + 4 * kDkvBlockQ) * (D + vec<T>()) +
-          kWarps * 16 * (kDkvBlockQ + vec<T>())) *
-         static_cast<int>(sizeof(T));
+  return ((2 * kBlockM + 4 * kDkvBlockQ) * (D + vec<float>()) +
+          kWarps * 16 * (kDkvBlockQ + vec<float>())) *
+         static_cast<int>(sizeof(float));
+}
+
+// Raise a kernel's dynamic shared-memory limit to `bytes`, once per device:
+// `ready` is the calling launcher's own record of the devices done.
+constexpr int kMaxDevices = 64;
+cudaError_t smem_limit_once(const void* kernel, int bytes, bool* ready) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && ready[dev])) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) ready[dev] = true;
+  return err;
 }
 
 template <int D>
 int fwd_f32(const Args& a) {
-  constexpr int smem = fwd_smem<float, D>();
+  constexpr int smem = fwd_smem<D>();
+  static bool ready[kMaxDevices] = {};
   auto kern = flash_fwd_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err =
+      smem_limit_once(reinterpret_cast<const void*>(kern), smem, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid = row_grid((a.s + kBlockM - 1) / kBlockM, a.b * a.h);
   kern<<<grid, kThreads, smem, a.stream>>>(
@@ -1287,24 +1946,12 @@ bool bf16_map(CUtensorMap* map, const void* base, int batch, int rows,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The shared-memory limit of kernel 1 (bf16), raised once per device.
-template <int D>
-cudaError_t fwd_wgmma_init() {
-  constexpr int kMaxDevices = 64;
-  static bool ready[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev < kMaxDevices && ready[dev])) return err;
-  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             fwd_wgmma_smem<D>());
-  if (err == cudaSuccess && dev < kMaxDevices) ready[dev] = true;
-  return err;
-}
-
 template <int D>
 int fwd_bf16(const Args& a) {
-  cudaError_t err = fwd_wgmma_init<D>();
+  static bool ready[kMaxDevices] = {};
+  const cudaError_t err = smem_limit_once(
+      reinterpret_cast<const void*>(flash_fwd_wgmma_kernel<D>),
+      wgmma_smem<FwdSmem<D>>(), ready);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap q_map, k_map, v_map;
   if (!bf16_map(&q_map, a.q, a.b, a.s, a.h, D, kFwdRows) ||
@@ -1316,55 +1963,108 @@ int fwd_bf16(const Args& a) {
                    static_cast<long long>(a.b) * a.h, a.scale};
   const dim3 grid = row_grid(tiles, a.b * a.h);
   flash_fwd_wgmma_kernel<D>
-      <<<grid, kFwdThreads, fwd_wgmma_smem<D>(), a.stream>>>(
+      <<<grid, kFwdThreads, wgmma_smem<FwdSmem<D>>(), a.stream>>>(
           q_map, k_map, v_map, static_cast<__nv_bfloat16*>(a.o0),
           static_cast<float*>(a.o1), f);
   return static_cast<int>(cudaGetLastError());
 }
 
-int fwd_any(const Args& a, int d, int is_bf16) {
-  if (is_bf16) {
-    if (d == 64) return fwd_bf16<64>(a);
-    if (d == 128) return fwd_bf16<128>(a);
-  } else {
-    if (d == 64) return fwd_f32<64>(a);
-    if (d == 128) return fwd_f32<128>(a);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <typename T, int D>
-int bwd_dq(const Args& a) {
-  constexpr int smem = dq_smem<T, D>();
-  auto kern = flash_bwd_dq_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <int D>
+int bwd_dq_f32(const Args& a) {
+  constexpr int smem = dq_smem<D>();
+  static bool ready[kMaxDevices] = {};
+  auto kern = flash_bwd_dq_kernel<D>;
+  const cudaError_t err =
+      smem_limit_once(reinterpret_cast<const void*>(kern), smem, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid = row_grid((a.s + kBlockM - 1) / kBlockM, a.b * a.h);
   kern<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse_in),
-      static_cast<const float*>(a.delta), static_cast<T*>(a.o0), a.s, a.t,
+      static_cast<const float*>(a.delta), static_cast<const float*>(a.out),
+      static_cast<float*>(a.delta_out), static_cast<float*>(a.o0), a.s, a.t,
       a.h, a.hk, a.causal, a.scale, a.b * a.h);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int bwd_dkv(const Args& a) {
-  constexpr int smem = dkv_smem<T, D>();
-  auto kern = flash_bwd_dkv_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <int D>
+int bwd_dkv_f32(const Args& a) {
+  constexpr int smem = dkv_smem<D>();
+  static bool ready[kMaxDevices] = {};
+  auto kern = flash_bwd_dkv_kernel<D>;
+  const cudaError_t err =
+      smem_limit_once(reinterpret_cast<const void*>(kern), smem, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid = row_grid((a.t + kBlockM - 1) / kBlockM, a.b * a.hk);
   kern<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse_in),
-      static_cast<const float*>(a.delta), static_cast<T*>(a.o0),
-      static_cast<T*>(a.o1), a.s, a.t, a.h, a.hk, a.causal, a.scale,
+      static_cast<const float*>(a.delta), static_cast<float*>(a.o0),
+      static_cast<float*>(a.o1), a.s, a.t, a.h, a.hk, a.causal, a.scale,
       a.b * a.hk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor maps of kernels 2 and 3 (bf16): q and dout in boxes of
+// q_rows rows, k and v in boxes of kv_rows.
+bool bwd_maps(const Args& a, int d, int q_rows, int kv_rows,
+              CUtensorMap (&m)[4]) {
+  return bf16_map(&m[0], a.q, a.b, a.s, a.h, d, q_rows) &&
+         bf16_map(&m[1], a.k, a.b, a.t, a.hk, d, kv_rows) &&
+         bf16_map(&m[2], a.v, a.b, a.t, a.hk, d, kv_rows) &&
+         bf16_map(&m[3], a.dout, a.b, a.s, a.h, d, q_rows);
+}
+
+BwdArgs bwd_args(const Args& a, int tiles, long long rows) {
+  return BwdArgs{static_cast<const __nv_bfloat16*>(a.out),
+                 static_cast<const __nv_bfloat16*>(a.dout),
+                 static_cast<const float*>(a.lse_in),
+                 static_cast<const float*>(a.delta),
+                 static_cast<float*>(a.delta_out),
+                 static_cast<__nv_bfloat16*>(a.o0),
+                 static_cast<__nv_bfloat16*>(a.o1),
+                 a.s, a.t, a.h, a.hk, a.causal, tiles, rows, a.scale};
+}
+
+template <int D>
+int bwd_dq_bf16(const Args& a) {
+  constexpr int smem = wgmma_smem<DqSmem<D>>();
+  static bool ready[kMaxDevices] = {};
+  const cudaError_t err = smem_limit_once(
+      reinterpret_cast<const void*>(flash_bwd_dq_wgmma_kernel<D>), smem,
+      ready);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap m[4], out_map{};
+  if (!bwd_maps(a, D, kBwdRows, kBwdTile, m) ||
+      (a.out != nullptr &&
+       !bf16_map(&out_map, a.out, a.b, a.s, a.h, D, kBwdRows)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (a.s + kBwdRows - 1) / kBwdRows;
+  flash_bwd_dq_wgmma_kernel<D>
+      <<<row_grid(tiles, a.b * a.h), kDqThreads, smem, a.stream>>>(
+          m[0], m[1], m[2], m[3], out_map,
+          bwd_args(a, tiles, static_cast<long long>(a.b) * a.h));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int bwd_dkv_bf16(const Args& a) {
+  constexpr int smem = wgmma_smem<DkvSmem<D>>();
+  static bool ready[kMaxDevices] = {};
+  const cudaError_t err = smem_limit_once(
+      reinterpret_cast<const void*>(flash_bwd_dkv_wgmma_kernel<D>), smem,
+      ready);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap m[4];
+  if (!bwd_maps(a, D, kBwdTile, kBwdRows, m))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (a.t + kBwdRows - 1) / kBwdRows;
+  flash_bwd_dkv_wgmma_kernel<D>
+      <<<row_grid(tiles, a.b * a.hk), kDkvThreads, smem, a.stream>>>(
+          m[0], m[1], m[2], m[3],
+          bwd_args(a, tiles, static_cast<long long>(a.b) * a.hk));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1372,15 +2072,16 @@ int bwd_dkv(const Args& a) {
 #define MPI_TPU_DISPATCH(NAME)                                         \
   int NAME##_any(const Args& a, int d, int is_bf16) {                  \
     if (is_bf16) {                                                     \
-      if (d == 64) return NAME<__nv_bfloat16, 64>(a);                  \
-      if (d == 128) return NAME<__nv_bfloat16, 128>(a);                \
+      if (d == 64) return NAME##_bf16<64>(a);                          \
+      if (d == 128) return NAME##_bf16<128>(a);                        \
     } else {                                                           \
-      if (d == 64) return NAME<float, 64>(a);                          \
-      if (d == 128) return NAME<float, 128>(a);                        \
+      if (d == 64) return NAME##_f32<64>(a);                           \
+      if (d == 128) return NAME##_f32<128>(a);                         \
     }                                                                  \
     return static_cast<int>(cudaErrorInvalidValue);                    \
   }
 
+MPI_TPU_DISPATCH(fwd)
 MPI_TPU_DISPATCH(bwd_dq)
 MPI_TPU_DISPATCH(bwd_dkv)
 
@@ -1410,6 +2111,18 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
                  int causal, float scale, int is_bf16, void* stream) {
   const Args a{q, k, v, dout, lse, delta, dq, nullptr, b, s, t, h, hk,
                causal, scale, static_cast<cudaStream_t>(stream)};
+  return bwd_dq_any(a, d, is_bf16);
+}
+
+// Kernel 2 from out: dq, and delta = rowsum(dout * out) (b, h, s) float32,
+// which the kernel computes and writes for kernel 3.
+int flash_bwd_dq_delta(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* out,
+                       void* delta, void* dq, int b, int s, int t, int h,
+                       int hk, int d, int causal, float scale, int is_bf16,
+                       void* stream) {
+  const Args a{q, k, v, dout, lse, nullptr, dq, nullptr, b, s, t, h, hk,
+               causal, scale, static_cast<cudaStream_t>(stream), out, delta};
   return bwd_dq_any(a, d, is_bf16);
 }
 

@@ -5,7 +5,8 @@ interpret mode on the CPU, as its own tests do; a ragged length passes
 small blocks on the JAX side only (its kernels need blocks that divide the
 sequence; the port's take any length). Checked: out and lse
 (``flash_attention_with_lse``), the gradients of ``flash_attention``
-(``jax.vjp`` against ``torch.autograd``) and ``flash_chunk_bwd``, over
+(``jax.vjp`` against ``torch.autograd``), ``flash_chunk_bwd`` and
+``flash_bwd_dq_delta`` (dq, and delta against a numpy rowsum), over
 causal / non-causal x MHA / GQA (kv 2, kv 1) x even / ragged length x
 float32 / bf16.
 
@@ -16,6 +17,8 @@ key block's running max where the plain version rounds it at the row's
 global max, so out gets atol = rtol = 2e-2, lse (float32 in both) 1e-3,
 and gradients, which go through two bf16 roundings (p or ds, then the
 output), atol = rtol = 2e-2 (the largest difference seen is 2**-7).
+delta = rowsum(dout * out) is float32 from the stored values on both sides
+and differs by summation order only: atol = rtol = 1e-5.
 """
 
 import numpy as np
@@ -30,7 +33,8 @@ from mpi_tpu_torch.ops import (dense_attention, flash_attention,  # noqa
                                flash_attention_bwd_plain,
                                flash_attention_fwd_plain,
                                flash_attention_with_lse, flash_bwd_dkv,
-                               flash_bwd_dq, flash_chunk_bwd, flash_fwd)
+                               flash_bwd_dq, flash_bwd_dq_delta,
+                               flash_chunk_bwd, flash_fwd)
 
 B, H, D = 2, 4, 16
 TOL = {
@@ -39,6 +43,7 @@ TOL = {
     "bfloat16": {"out": (2e-2, 2e-2), "lse": (1e-3, 1e-3),
                  "grad": (2e-2, 2e-2)},
 }
+DELTA_TOL = (1e-5, 1e-5)
 TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JAX_DTYPE = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 # name -> (s, JAX block size): "ragged" is no multiple of the port's tiles.
@@ -119,7 +124,9 @@ def test_gradients_match_jax_vjp(causal, kv, length, dtype):
 @CASES
 def test_chunk_bwd_matches_jax(causal, kv, s, t, blk, dtype):
     """One (query chunk, kv chunk) pair, s != t included: the backward
-    kernels' contract against the global softmax rows."""
+    kernels' contract against the global softmax rows. Kernel 2 computing
+    delta from out (``flash_bwd_dq_delta``) gives the same dq, and delta
+    agrees with a numpy rowsum of dout * out."""
     (jq, jk, jv, jg), (tq, tk, tv, tg) = _qkv(s, t, kv, dtype, seed=2)
     j_out, j_lse = jax_attention.flash_attention_with_lse(jq, jk, jv, causal,
                                                           blk, blk)
@@ -130,6 +137,12 @@ def test_chunk_bwd_matches_jax(causal, kv, s, t, blk, dtype):
     got = flash_chunk_bwd(tq, tk, tv, out, lse, tg, causal)
     for x, w in zip(got, want):
         _close(x, w, TOL[dtype]["grad"])
+    dq, delta = flash_bwd_dq_delta(tq, tk, tv, tg, lse, out, causal)
+    assert dq.dtype == tq.dtype and dq.shape == tq.shape
+    assert delta.dtype == torch.float32 and tuple(delta.shape) == (B, H, s)
+    _close(dq, want[0], TOL[dtype]["grad"])
+    want_delta = (_np(jg) * _np(j_out)).sum(-1).transpose(0, 2, 1)
+    _close(delta, want_delta, DELTA_TOL)
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -8,10 +8,13 @@
   and a CPU call counts no kernel launch.
 * A missing CUDA compiler is an error, never a stub.
 * The all-reduce kernel is one ordinary launch: no grid barrier, no
-  cooperative launch. The bf16 flash forward multiplies on wgmma with P in
-  registers, not through shared memory.
+  cooperative launch. The bf16 flash forward and backward multiply on
+  wgmma with p, ds and their transposes in registers, not through shared
+  memory; on CUDA the backward takes delta from kernel 2, not from torch
+  ops; no launch sets a kernel attribute.
 """
 
+import inspect
 import re
 import subprocess
 import sys
@@ -25,7 +28,8 @@ from mpi_tpu_torch.models import (TransformerConfig, generate, init_params,
                                   make_train_step)
 from mpi_tpu_torch.ops import _build
 from mpi_tpu_torch.ops.attention import (flash_attention, flash_bwd_dkv,
-                                         flash_bwd_dq, flash_fwd)
+                                         flash_bwd_dq, flash_bwd_dq_delta,
+                                         flash_chunk_bwd, flash_fwd)
 from mpi_tpu_torch.ops.decode_attention import flash_decode_attention
 from mpi_tpu_torch.ops.ring_collectives import (ring_allgather,
                                                 ring_allgather_sharded,
@@ -119,6 +123,31 @@ def test_flash_wrappers_never_fall_back_off_the_cpu():
         flash_bwd_dkv(q, q, q, q, rows, rows)
 
 
+def test_dq_delta_wrapper_never_falls_back_off_the_cpu():
+    q = torch.empty((1, 8, 4, 64), device="meta")
+    rows = torch.empty((1, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="cuda .kernel. or cpu"):
+        flash_bwd_dq_delta(q, q, q, q, rows, q)
+
+
+def test_cpu_dq_delta_calls_are_not_counted_as_kernel_launches():
+    before = flash_bwd_dq.launches
+    q = torch.randn(1, 8, 4, 64)
+    out, lse = flash_fwd(q, q, q)
+    dq, delta = flash_bwd_dq_delta(q, q, q, q, lse, out)
+    assert dq.shape == q.shape and delta.shape == (1, 4, 8)
+    assert flash_bwd_dq.launches == before
+
+
+def test_cuda_backward_takes_delta_from_kernel_2():
+    """Past its CPU branch, flash_chunk_bwd computes no delta with torch
+    ops: kernel 2 does, and kernel 3 reads it."""
+    src = inspect.getsource(flash_chunk_bwd)
+    cuda_path = src[src.index('== "cpu"'):].split("\n", 2)[2]
+    assert "flash_bwd_dq_delta(" in cuda_path
+    assert "_delta(" not in cuda_path.replace("flash_bwd_dq_delta(", "")
+
+
 def test_cpu_flash_calls_are_not_counted_as_kernel_launches():
     wrappers = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
     before = [w.launches for w in wrappers]
@@ -205,3 +234,44 @@ def test_bf16_flash_forward_keeps_p_in_registers():
     assert "flash_fwd_wgmma_kernel<D>" in _c_function(src, "fwd_bf16")
     assert "const float* __restrict__ q" in _c_function(src,
                                                          "flash_fwd_tile")
+
+
+def test_bf16_flash_backward_multiplies_on_wgmma_in_registers():
+    src = (CSRC / "flash_attention.cu").read_text()
+    assert "wgmma.mma_async" in _c_function(src, "wgmma_ss_n64")
+    assert "wgmma_ss_n64" in _c_function(src, "issue_ss64")
+    assert "wgmma_pv<D>" in _c_function(src, "issue_pv")
+    for name in ("dq_consumer", "dkv_consumer"):
+        consumer = _c_function(src, name)
+        assert "issue_ss64<D>" in consumer and "issue_pv<D, 4>" in consumer
+        assert "pack_p(" in consumer
+        for banned in ("stash", "warp_gemm", "mma_bf16", "__shared__"):
+            assert banned not in consumer, f"{name} uses {banned}"
+    for gone in ("mma_bf16", "ld_pair", "mma.sync.aligned"):
+        assert gone not in src, f"the bf16 mma.sync path left {gone}"
+    # The bf16 backward launches the wgmma kernels; the FMA bodies take
+    # float32 only.
+    for launcher, kernel in (("bwd_dq_bf16", "flash_bwd_dq_wgmma_kernel"),
+                             ("bwd_dkv_bf16", "flash_bwd_dkv_wgmma_kernel")):
+        launches = re.findall(r"(\w+)<D>\s*<<<",
+                              _c_function(src, launcher))
+        assert launches == [kernel], (launcher, launches)
+    for name in ("flash_bwd_dq_tile", "flash_bwd_dkv_tile"):
+        assert "const float* __restrict__ q" in _c_function(src, name)
+
+
+def test_no_launch_sets_a_kernel_attribute():
+    """cudaFuncSetAttribute runs once per device, in smem_limit_once, and
+    in no launching function."""
+    src = (CSRC / "flash_attention.cu").read_text()
+    launchers = ("fwd_f32", "fwd_bf16", "bwd_dq_f32", "bwd_dq_bf16",
+                 "bwd_dkv_f32", "bwd_dkv_bf16", "flash_fwd", "flash_bwd_dq",
+                 "flash_bwd_dq_delta", "flash_bwd_dkv")
+    for name in launchers:
+        body = _c_function(src, name)
+        assert "cudaFuncSetAttribute" not in body, name
+    for name in launchers[:6]:
+        assert "smem_limit_once(" in _c_function(src, name), name
+    once = _c_function(src, "smem_limit_once")
+    assert "cudaFuncSetAttribute" in once and "ready[dev]" in once
+    assert src.count("cudaFuncSetAttribute(") == 1
