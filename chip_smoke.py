@@ -48,10 +48,10 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 
 # Decode kernel against plain version. float32: summation order only.
-# bfloat16: p is rounded to bf16 at each tile's running max in the kernel
-# and at the global max in the plain version, and the output is rounded to
-# bf16 (one ulp is 2**-8 relative), so out gets a bf16-sized tolerance; lse
-# is float32 in both and differs by summation order.
+# bfloat16: p is rounded to bf16 at each key group's running max in the
+# kernel and at the global max in the plain version, and the output is
+# rounded to bf16 (one ulp is 2**-8 relative), so out gets a bf16-sized
+# tolerance; lse is float32 in both and differs by summation order.
 KERNEL_TOL = {
     "torch.float32": {"out": (1e-5, 1e-5), "lse": (1e-5, 1e-5)},
     "torch.bfloat16": {"out": (2e-2, 1e-2), "lse": (1e-3, 1e-5)},
@@ -875,12 +875,17 @@ def ring_slice(dev, card):
         del ones
     del grads32, grads16
     e = shards.element_size()
+    least = (m + n * m) * e  # the kernel moves exactly these bytes
     rows["ring_allgather"] = report(
         "ring_allgather", f"{n} ranks x {m // n} {shards.dtype}",
         kernel_ms(lambda x: ring_allgather(x, mesh), [(shards,)], 20),
         kernel_ms(lambda x: ring_allgather_plain(x, n), [(shards,)], 5),
         kernel_ms(lambda x: x.repeat(n), [(shards,)], 20),
-        f"x.repeat({n})", (m + n * m) * e, 2 * n * m * e, 0, shards.dtype)
+        f"x.repeat({n})", least, least, 0, shards.dtype)
+    row = rows["ring_allgather"]
+    print(f"ring_allgather {n} ranks x {m // n} {shards.dtype}: "
+          f"{least / row['ms'] / 1e9!r} TB/s of least bytes, "
+          f"{row['bound_ms'] / row['ms']!r} of the bound  [{card}]")
     block = blocks[0].numel() * blocks.element_size()
     senders = torch.tensor([(d - 1) % n for d in range(n)], device=dev)
     rows["sendrecv"] = report(
@@ -901,6 +906,72 @@ def ring_slice(dev, card):
     return launches, rows, errs
 
 
+def decode_times(dev, gen, card, cfg):
+    """Kernel 4 at the flagship decode shape (n_valid 0, 128 and 255) and
+    at a long cache of the same widths (t 8192, n_valid 8191): kernel,
+    plain version and SDPA times (ms) and the bound. Returns {n_valid:
+    row} for the flagship shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from mpi_tpu_torch.ops.decode_attention import (
+        flash_decode_attention, flash_decode_attention_plain, kernel_splits)
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    b, h, kv, hd, dtype = BATCH, cfg.n_heads, cfg.kv_heads, cfg.head_dim, \
+        cfg.dtype
+    rows = {}
+    # The flagship's decode shape: twelve sets of inputs (96 MB) cycle so
+    # each launch finds its K/V outside the 50 MB L2, as a decode step
+    # does after streaming the layer's weights. At t 8192 one set (537 MB)
+    # is past the L2 on its own. n_valid 0 (one live key) shows the fixed
+    # cost of a launch.
+    for t, n_sets, points in ((cfg.max_seq, 12, (0, PROMPT_LEN,
+                                                 cfg.max_seq - 1)),
+                              (8192, 1, (8191,))):
+        sets = [(torch.randn(b, h, hd, generator=gen, device=dev).to(dtype),
+                 torch.randn(b, t, kv, hd, generator=gen,
+                             device=dev).to(dtype),
+                 torch.randn(b, t, kv, hd, generator=gen,
+                             device=dev).to(dtype))
+                for _ in range(n_sets)]
+        elt = sets[0][0].element_size()
+        splits = kernel_splits(b, kv, h, t, hd, dtype, sms)
+        reps = 240 if t < 8192 else 60
+        for n_valid in points:
+            n_live = n_valid + 1
+            ms = kernel_ms(lambda q, k, v: flash_decode_attention(q, k, v,
+                                                                  n_valid),
+                           sets, reps)
+            plain_ms = kernel_ms(
+                lambda q, k, v: flash_decode_attention_plain(q, k, v,
+                                                             n_valid),
+                sets, 16 if t < 8192 else 4)
+            sdpa_ms = kernel_ms(
+                lambda q, k, v: F.scaled_dot_product_attention(
+                    q[:, :, None], k[:, :n_live].transpose(1, 2),
+                    v[:, :n_live].transpose(1, 2), enable_gqa=kv != h),
+                sets, reps // 4)
+            kv_bytes = 2 * b * n_live * kv * hd * elt
+            bound_ms, bound_by = bound(kv_bytes + 2 * b * h * hd * elt +
+                                       4 * b * h, 4 * b * h * n_live * hd,
+                                       dtype)
+            if t == cfg.max_seq:
+                rows[n_valid] = dict(ms=ms, plain_ms=plain_ms,
+                                     library_ms=sdpa_ms, bound_ms=bound_ms,
+                                     bound_by=bound_by)
+            print(f"decode kernel b={b} h={h} kv={kv} hd={hd} t={t} {dtype} "
+                  f"n_valid={n_valid}: {splits} splits, {b * kv * splits} "
+                  f"blocks; kernel {ms * 1e3!r} us, plain "
+                  f"{plain_ms * 1e3!r} us, sdpa {sdpa_ms * 1e3!r} us; bound "
+                  f"{bound_ms * 1e3!r} us by {bound_by} (live K+V "
+                  f"{kv_bytes} B / {HBM_BYTES_PER_S:.3g} B/s = "
+                  f"{kv_bytes / HBM_BYTES_PER_S * 1e6!r} us), "
+                  f"{bound_ms / ms!r} of the bound  [{card}]")
+        del sets
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -908,14 +979,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
 
-    import torch.nn.functional as F
-
     from mpi_tpu_torch.models import (generate, init_params,
                                       quantize_params)
     from mpi_tpu_torch.models.generate import decode_step, prefill
     from mpi_tpu_torch.ops import _build
     from mpi_tpu_torch.ops.decode_attention import (
-        flash_decode_attention, flash_decode_attention_plain, kernel_tile)
+        flash_decode_attention, flash_decode_attention_plain, kernel_splits,
+        kernel_tile)
     from mpi_tpu_torch.serve import flagship_config
     from mpi_tpu_torch.train import (flagship_train_config, peak_bf16_tflops,
                                      train_flops_per_step)
@@ -954,12 +1024,15 @@ def main() -> int:
 
     # ---- 2. kernels against plain -------------------------------------
     gen = torch.Generator(device=dev).manual_seed(1234)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     shapes = [  # (b, h, kv, hd, t)
         (8, 8, 8, 128, 256),   # flagship MHA
         (8, 8, 2, 128, 256),   # GQA
         (8, 8, 1, 128, 256),   # MQA
-        (8, 8, 8, 128, 200),   # t not a multiple of the tile
+        (8, 8, 8, 128, 200),   # t not a multiple of the load unit
         (2, 16, 1, 64, 200),   # group 16: two row chunks per kv head
+        (8, 8, 8, 128, 4096),  # flagship widths, long cache: 2 splits
+        (1, 8, 2, 128, 4096),  # few clusters: 8 splits
     ]
     max_err = 0.0
     n_cmp = 0
@@ -971,20 +1044,31 @@ def main() -> int:
                             device=dev).to(dtype)
             v = torch.randn(b, t, kv, hd, generator=gen,
                             device=dev).to(dtype)
-            tile = kernel_tile(dtype, hd)
-            for n_valid in (-1, 0, tile - 1, tile, t - 1):
+            unit = kernel_tile(dtype, hd)
+            splits = kernel_splits(b, kv, h, t, hd, dtype, sms)
+            edges = [r * t // splits for r in range(1, splits)]
+            cases = sorted(n for n in {-1, 0, unit - 1, unit, t - 1, *edges,
+                                       *(e - 1 for e in edges)} if n < t)
+            for n_valid in cases:
                 out, lse = flash_decode_attention(q, k, v, n_valid,
                                                   with_lse=True)
+                # The same call with n_valid in device memory: the same
+                # bits (every output is written once, in a fixed order).
+                out2, lse2 = flash_decode_attention(
+                    q, k, v, torch.tensor(n_valid, dtype=torch.int32,
+                                          device=dev), with_lse=True)
                 ref, ref_lse = flash_decode_attention_plain(q, k, v,
                                                             n_valid)
                 torch.cuda.synchronize()
                 err = (out.float() - ref.float()).abs().max().item()
                 lse_err = (lse - ref_lse).abs().max().item()
-                where = (f"b={b} h={h} kv={kv} hd={hd} t={t} "
-                         f"{dtype} n_valid={n_valid}")
+                where = (f"b={b} h={h} kv={kv} hd={hd} t={t} {splits} "
+                         f"splits {dtype} n_valid={n_valid}")
                 check(out.dtype == dtype and out.shape == q.shape,
                       f"kernel output {out.dtype} {tuple(out.shape)} at "
                       f"{where}")
+                check(bits_equal(out, out2) and bits_equal(lse, lse2),
+                      f"device n_valid gave other bits at {where}")
                 check(torch.allclose(out.float(), ref.float(),
                                      atol=tol["out"][0], rtol=tol["out"][1]),
                       f"kernel out differs from plain by {err} at {where}")
@@ -998,8 +1082,10 @@ def main() -> int:
                           f"empty live prefix not zero/-1e30 at {where}")
                 max_err = max(max_err, err)
                 n_cmp += 1
-    print(f"decode kernel vs plain: {n_cmp} cases pass, max |out err| "
-          f"{max_err!r} (tolerances {KERNEL_TOL})")
+    print(f"decode kernel vs plain: {n_cmp} cases pass (n_valid at the "
+          f"load unit's and every split's edges; each repeated with n_valid "
+          f"in device memory, bitwise equal), max |out err| {max_err!r} "
+          f"(tolerances {KERNEL_TOL})")
     flash_err = check_flash_kernels(dev, gen)
     ring_err = check_ring_kernels(dev, gen)
 
@@ -1108,44 +1194,7 @@ def main() -> int:
               f"generated token, {n_gen / ms * 1e3!r} tok/s  [{card}]")
     del qparams, params
 
-    # The flagship's decode shape. Twelve sets of inputs (96 MB) cycle so
-    # each launch finds its K/V outside the 50 MB L2, as a decode step
-    # does after streaming the layer's weights.
-    b, h, kv, hd, t = BATCH, cfg.n_heads, cfg.kv_heads, cfg.head_dim, \
-        cfg.max_seq
-    dtype = cfg.dtype
-    sets = [(torch.randn(b, h, hd, generator=gen, device=dev).to(dtype),
-             torch.randn(b, t, kv, hd, generator=gen, device=dev).to(dtype),
-             torch.randn(b, t, kv, hd, generator=gen, device=dev).to(dtype))
-            for _ in range(12)]
-    elt = sets[0][0].element_size()
-    rows = {}
-    # n_valid 0 (one live key) shows the fixed cost of a launch.
-    for n_valid in (0, PROMPT_LEN, t - 1):
-        n_live = n_valid + 1
-        ms = kernel_ms(lambda q, k, v: flash_decode_attention(q, k, v,
-                                                              n_valid),
-                       sets, 240)
-        plain_ms = kernel_ms(
-            lambda q, k, v: flash_decode_attention_plain(q, k, v, n_valid),
-            sets, 16)
-        sdpa_ms = kernel_ms(
-            lambda q, k, v: F.scaled_dot_product_attention(
-                q[:, :, None], k[:, :n_live].transpose(1, 2),
-                v[:, :n_live].transpose(1, 2), enable_gqa=kv != h),
-            sets, 64)
-        kv_bytes = 2 * b * n_live * kv * hd * elt
-        bound_ms, bound_by = bound(kv_bytes + 2 * b * h * hd * elt +
-                                   4 * b * h, 4 * b * h * n_live * hd, dtype)
-        rows[n_valid] = dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
-                             bound_ms=bound_ms, bound_by=bound_by)
-        print(f"decode kernel b={b} h={h} kv={kv} hd={hd} t={t} {dtype} "
-              f"n_valid={n_valid}: kernel {ms * 1e3!r} us, plain "
-              f"{plain_ms * 1e3!r} us, sdpa {sdpa_ms * 1e3!r} us; bound "
-              f"{bound_ms * 1e3!r} us by {bound_by} (live K+V {kv_bytes} "
-              f"B / {HBM_BYTES_PER_S:.3g} B/s = "
-              f"{kv_bytes / HBM_BYTES_PER_S * 1e6!r} us)  [{card}]")
-    del sets
+    rows = decode_times(dev, gen, card, cfg)
     flash_rows = flash_times(dev, gen, card)
     torch.cuda.empty_cache()
 
@@ -1170,7 +1219,7 @@ def main() -> int:
         "replaces": "mpi_tpu/ops/decode_attention.py:58",
         "launches": main_launches,
         "max_abs_err": max_err,
-        **rows[t - 1],
+        **rows[cfg.max_seq - 1],
     })
     for name, source, replaces in (
             ("ring_allgather", "mpi_tpu_torch/ops/csrc/ring_collectives.cu",

@@ -7,41 +7,63 @@
 // semantics: columns 0 .. n_valid are live, inputs stay in their stored
 // dtype, the softmax state (m, l, acc) is float32, p is rounded to v's
 // dtype before the PV product, and an empty live prefix (n_valid < 0)
-// gives a zero output with lse = m + log(1e-30) ~ -1e30.
+// gives a zero output with lse = m + log(1e-30) ~ -1e30. As there, n_valid
+// may be read from device memory, so a caller need not sync the host.
 //
 // What bounds it on this card: bytes. Each live K and V row is read once
 // and does 2 * hd FLOPs per query row against 2 * hd * sizeof(T) bytes, so
 // with a GQA group of g rows the kernel does about g / sizeof(T) FLOPs per
 // byte, far below the ~295 FLOPs per byte where an H100's tensor cores
-// become the limit. The design therefore only has to read K and V once,
-// with many wide loads in flight, and keep everything else on chip:
-//   * one thread block per (b, kv head, chunk of up to 8 group rows), so
-//     the group's query rows share every K/V load; the row count is a
-//     template parameter (1, 2, 4 or 8), so a small group holds no unused
-//     query or accumulator registers;
-//   * neighbouring threads load neighbouring 16-byte pieces of one key row
-//     (hd / VEC threads per key), so a warp reads whole rows;
-//   * an in-block loop over tiles of keys takes the place of the TPU's
-//     sequential third grid axis. A tile is kPasses keys per thread: each
-//     thread issues all its K loads of the tile before it uses any, and its
-//     V loads before the softmax update, so a tile costs about one memory
-//     round trip for K and one, overlapped with the softmax, for V. The
-//     loop stops at the live prefix, so dead cache columns are never read;
+// become the limit. At decode sizes the cache is a few MB, so what costs
+// time is latency: too few blocks, and memory round trips in series. The
+// design keeps each block's loads in flight and, where the cache is long
+// enough to pay for it, spreads one (b, kv head) over several SMs:
+//   * The cache positions are split across a thread-block cluster. Each
+//     (b, kv head, chunk of up to 8 group rows) is a cluster of S blocks
+//     (S <= 8, the portable cluster size, chosen by the wrapper from t and
+//     the SM count: kernel_splits in ops/decode_attention.py), and block r
+//     of the cluster takes positions [r t / S, (r + 1) t / S). The wrapper
+//     keeps the blocks within the SMs and gives each at least four load
+//     units: a cluster launch costs about 1.2 us more than a plain one on
+//     an H100, so at the flagship decode shape (b 8, kv 8, t 256) S is 1
+//     (64 blocks, launched without the cluster attribute), and from t 512
+//     at the same widths S is 2 (128 blocks). S depends on t, not on
+//     n_valid; a block whose positions lie past the live prefix issues no
+//     load and leaves an empty partial (m = -1e30, l = 0, acc = 0).
+//   * hd / VEC neighbouring threads (a key group) read one key row in
+//     16-byte pieces, and the block's KPP key groups take its keys in
+//     turn. A batch is P keys per key group (KPP * P keys, the load unit):
+//     each thread issues the K and the V loads of a batch together, and
+//     those of the next batch before it uses the current one, so two
+//     batches are in flight. Dead positions are never read.
+//   * Each key group keeps its own running (m, l, acc) per query row in
+//     registers. A score is reduced across the key group by shuffles, so
+//     the key loop touches no shared memory and no barrier. In bf16, p is
+//     rounded at the key group's running max.
+//   * At the end the key groups merge through shared memory (the block's
+//     max, each group rescaled to it, summed across a warp by shuffles and
+//     then across warps in warp order), and the S blocks merge through
+//     distributed shared memory: after cluster.sync(), block rank 0 reads
+//     the S partials (m, l, acc) in rank order and writes out and lse, and
+//     the cluster syncs again before any block exits. No atomics, no
+//     global scratch, no second launch: every output is written once, and
+//     two calls give the same bits.
 //   * QK dot products and the PV accumulation are float32 FMAs on the CUDA
 //     cores: at g rows per key there is nothing for the tensor cores to do.
-// Not done yet: splitting the key range across blocks with an lse merge.
-// With one block per (b, kv) a batch of 8 with 8 kv heads fills 64 of the
-// 132 SMs, and the tiles of one block run one after another.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPasses = 8;  // keys per thread per tile
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRows = 8;
+constexpr int kMaxSplits = 8;  // the portable cluster size
 constexpr float kNegInf = -1e30f;
 
 template <typename T>
@@ -82,52 +104,155 @@ struct Elem<__nv_bfloat16> {
   }
 };
 
-// Work split of one block for element type T and head_dim HD.
+// Work split of one block for element type T and head_dim HD. The Python
+// wrapper mirrors UNIT in _load_unit and by_rows in _rows
+// (ops/decode_attention.py); tests/test_torch_port_rules.py reads these
+// definitions back to check that the two agree.
 template <typename T, int HD>
 struct Shape {
   static constexpr int VEC = Elem<T>::kVec;
   static constexpr int TPK = (HD / VEC < 32) ? HD / VEC : 32;  // threads/key
   static constexpr int NV = HD / (VEC * TPK);  // 16-byte pieces per thread
   static constexpr int EPT = NV * VEC;         // elements per thread per key
-  static constexpr int KPP = kThreads / TPK;   // keys per pass
-  static constexpr int TILE = KPP * kPasses;   // keys per tile
-  static_assert(HD % (VEC * TPK) == 0, "unsupported head_dim");
+  static constexpr int KPP = kThreads / TPK;   // key groups of the block
+  static constexpr int P = 4 / NV;             // keys per key group per batch
+  static constexpr int UNIT = KPP * P;         // keys per batch of the block
+  static_assert(HD % (VEC * TPK) == 0 && NV <= 4, "unsupported head_dim");
 };
 
+// The K and V pieces of this thread for one batch, all loads issued before
+// any is used; positions at or past `j_end` are not read (zeros).
+template <typename T, int HD>
+__device__ __forceinline__ void load_batch(
+    const T* kbase, const T* vbase, size_t row_stride, int j0, int j_end,
+    int kg, typename Elem<T>::Raw (&kr)[Shape<T, HD>::P][Shape<T, HD>::NV],
+    typename Elem<T>::Raw (&vr)[Shape<T, HD>::P][Shape<T, HD>::NV]) {
+  using S = Shape<T, HD>;
+  using Raw = typename Elem<T>::Raw;
+#pragma unroll
+  for (int p = 0; p < S::P; ++p) {
+    const int j = j0 + p * S::KPP + kg;
+    const bool live = j < j_end;
+#pragma unroll
+    for (int n = 0; n < S::NV; ++n) {
+      const size_t at = j * row_stride + n * S::TPK * S::VEC;
+      kr[p][n] = live ? *reinterpret_cast<const Raw*>(kbase + at) : Raw{};
+      vr[p][n] = live ? *reinterpret_cast<const Raw*>(vbase + at) : Raw{};
+    }
+  }
+}
+
+// One batch into this key group's running (m, l, acc) of every row.
 template <typename T, int HD, int ROWS>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void update(
+    typename Elem<T>::Raw (&kr)[Shape<T, HD>::P][Shape<T, HD>::NV],
+    typename Elem<T>::Raw (&vr)[Shape<T, HD>::P][Shape<T, HD>::NV],
+    int j0, int j_end, int kg, float scale,
+    float (&qr)[ROWS][Shape<T, HD>::EPT], float (&m)[ROWS],
+    float (&l)[ROWS], float (&acc)[ROWS][Shape<T, HD>::EPT]) {
+  using S = Shape<T, HD>;
+  constexpr int P = S::P, NV = S::NV, EPT = S::EPT, VEC = S::VEC;
+  bool live[P];
+  float s[ROWS][P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    live[p] = j0 + p * S::KPP + kg < j_end;
+    float kf[EPT];
+#pragma unroll
+    for (int n = 0; n < NV; ++n) Elem<T>::unpack(kr[p][n], &kf[n * VEC]);
+#pragma unroll
+    for (int g = 0; g < ROWS; ++g) {
+      float dot = 0.f;
+#pragma unroll
+      for (int e = 0; e < EPT; ++e) dot = fmaf(qr[g][e], kf[e], dot);
+#pragma unroll
+      for (int off = S::TPK / 2; off > 0; off >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      s[g][p] = dot * scale;
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < ROWS; ++g) {
+    float mx = m[g];
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      if (live[p]) mx = fmaxf(mx, s[g][p]);
+    const float corr = expf(m[g] - mx);  // 1 when the max is unchanged
+    m[g] = mx;
+    l[g] *= corr;
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) acc[g][e] *= corr;
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    float vf[EPT];
+#pragma unroll
+    for (int n = 0; n < NV; ++n) Elem<T>::unpack(vr[p][n], &vf[n * VEC]);
+#pragma unroll
+    for (int g = 0; g < ROWS; ++g) {
+      const float pe = live[p] ? expf(s[g][p] - m[g]) : 0.f;
+      l[g] += pe;
+      const float pr = Elem<T>::round(pe);  // p in v's dtype for PV
+#pragma unroll
+      for (int e = 0; e < EPT; ++e) acc[g][e] = fmaf(pr, vf[e], acc[g][e]);
+    }
+  }
+}
+
+// One or two query rows fit 128 registers a thread, so 512 / kThreads
+// blocks share an SM; more rows get the registers of a whole SM.
+template <typename T, int HD, int ROWS>
+__global__ void __launch_bounds__(kThreads, ROWS <= 2 ? 512 / kThreads : 1)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, T* __restrict__ out,
                         float* __restrict__ lse, int t, int kv, int group,
-                        int n_live, float scale) {
+                        int chunks, int n_valid,
+                        const int* __restrict__ n_valid_at, float scale) {
   using S = Shape<T, HD>;
   using Raw = typename Elem<T>::Raw;
   constexpr int VEC = S::VEC, TPK = S::TPK, NV = S::NV, EPT = S::EPT;
-  constexpr int KPP = S::KPP, TILE = S::TILE;
+  constexpr int P = S::P, UNIT = S::UNIT;
+  // Rows a pass of the block merge: s_red holds at most 32 KB.
+  constexpr int RCH = ROWS < 8192 / (kWarps * HD) ? ROWS : 8192 / (kWarps * HD);
 
-  __shared__ float s_p[ROWS][TILE];  // scores, then p rounded to T
+  __shared__ float s_wm[kWarps][ROWS];  // each warp's max of each row
+  __shared__ float s_wl[kWarps][ROWS];  // each warp's l, at the block max
+  __shared__ float s_red[kWarps][RCH][HD];
+  // The block's partial, read by block rank 0 of the cluster.
   __shared__ float s_m[ROWS];
   __shared__ float s_l[ROWS];
-  __shared__ float s_corr[ROWS];
-  __shared__ float s_red[KPP][HD];
+  __shared__ float s_acc[ROWS][HD];
 
-  const int kvi = blockIdx.x;
-  const int bi = blockIdx.y;
-  const int row0 = blockIdx.z * ROWS;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = static_cast<int>(cluster.block_rank());
+  const int splits = gridDim.x;  // one cluster spans grid x
+  const int kvi = blockIdx.y / chunks;
+  const int row0 = (blockIdx.y % chunks) * ROWS;
+  const int bi = blockIdx.z;
   const int rows = min(ROWS, group - row0);
-  const int h = kv * group;
   const int tid = threadIdx.x;
   const int sub = tid % TPK;  // which 16-byte pieces of a key row
-  const int kg = tid / TPK;   // which key of a pass
+  const int kg = tid / TPK;   // which key group
   const int warp = tid / 32;
   const int lane = tid % 32;
 
+  const int nv = n_valid_at ? *n_valid_at : n_valid;
+  const int n_live = nv < 0 ? 0 : (nv >= t ? t : nv + 1);
+  const int j_begin = static_cast<int>(static_cast<long long>(split) * t /
+                                       splits);
+  const int j_end = min(n_live, static_cast<int>(
+                                    static_cast<long long>(split + 1) * t /
+                                    splits));
+
   // Query rows of this block: heads kvi * group + row0 + g.
-  const size_t head0 = (size_t)bi * h + (size_t)kvi * group + row0;
+  const size_t head0 = ((size_t)bi * kv + kvi) * group + row0;
   float qr[ROWS][EPT];
   float acc[ROWS][EPT];
+  float m[ROWS], l[ROWS];
 #pragma unroll
   for (int g = 0; g < ROWS; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
 #pragma unroll
     for (int e = 0; e < EPT; ++e) {
       qr[g][e] = 0.f;
@@ -141,179 +266,202 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         &qr[g][n * VEC]);
     }
   }
-  if (tid < ROWS) {
-    s_m[tid] = kNegInf;
-    s_l[tid] = 0.f;
-    s_corr[tid] = 1.f;
-  }
 
   const size_t row_stride = (size_t)kv * HD;  // one cache position
   const T* kbase = k + ((size_t)bi * t * kv + kvi) * HD + sub * VEC;
   const T* vbase = v + ((size_t)bi * t * kv + kvi) * HD + sub * VEC;
 
-  for (int tile0 = 0; tile0 < n_live; tile0 += TILE) {
-    // All K loads of the tile in flight at once.
-    Raw raw[kPasses][NV];
-#pragma unroll
-    for (int p = 0; p < kPasses; ++p) {
-      const int j = tile0 + p * KPP + kg;
-#pragma unroll
-      for (int n = 0; n < NV; ++n)
-        raw[p][n] = j < n_live ? *reinterpret_cast<const Raw*>(
-                                     kbase + j * row_stride + n * TPK * VEC)
-                               : Raw{};
+  // Batches in pairs, two register sets: the loads of the next batch are
+  // in flight while the current one is used.
+  const int batches = j_end > j_begin ? (j_end - j_begin + UNIT - 1) / UNIT
+                                      : 0;
+  Raw ka[P][NV], va[P][NV], kb[P][NV], vb[P][NV];
+  if (batches > 0)
+    load_batch<T, HD>(kbase, vbase, row_stride, j_begin, j_end, kg, ka, va);
+  for (int i = 0; i < batches; i += 2) {
+    const int j0 = j_begin + i * UNIT;
+    if (i + 1 < batches)
+      load_batch<T, HD>(kbase, vbase, row_stride, j0 + UNIT, j_end, kg, kb,
+                        vb);
+    update<T, HD, ROWS>(ka, va, j0, j_end, kg, scale, qr, m, l, acc);
+    if (i + 1 < batches) {
+      if (i + 2 < batches)
+        load_batch<T, HD>(kbase, vbase, row_stride, j0 + 2 * UNIT, j_end, kg,
+                          ka, va);
+      update<T, HD, ROWS>(kb, vb, j0 + UNIT, j_end, kg, scale, qr, m, l, acc);
     }
-    // Scores of the tile's keys for every row.
-#pragma unroll
-    for (int p = 0; p < kPasses; ++p) {
-      const int jl = p * KPP + kg;
-      float kf[EPT];
-#pragma unroll
-      for (int n = 0; n < NV; ++n) Elem<T>::unpack(raw[p][n], &kf[n * VEC]);
-#pragma unroll
-      for (int g = 0; g < ROWS; ++g) {
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < EPT; ++e) dot = fmaf(qr[g][e], kf[e], dot);
-#pragma unroll
-        for (int off = TPK / 2; off > 0; off >>= 1)
-          dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        if (sub == 0)
-          s_p[g][jl] = (tile0 + jl < n_live) ? dot * scale : kNegInf;
-      }
-    }
-    // V loads of the tile, in flight while the softmax state updates.
-#pragma unroll
-    for (int p = 0; p < kPasses; ++p) {
-      const int j = tile0 + p * KPP + kg;
-#pragma unroll
-      for (int n = 0; n < NV; ++n)
-        raw[p][n] = j < n_live ? *reinterpret_cast<const Raw*>(
-                                     vbase + j * row_stride + n * TPK * VEC)
-                               : Raw{};
-    }
-    __syncthreads();
-
-    // Online-softmax update, one warp per row.
-    for (int g = warp; g < rows; g += kThreads / 32) {
-      float mx = kNegInf;
-      for (int c = lane; c < TILE; c += 32) mx = fmaxf(mx, s_p[g][c]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = s_m[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int c = lane; c < TILE; c += 32) {
-        const float pe = expf(s_p[g][c] - m_new);
-        sum += pe;
-        s_p[g][c] = Elem<T>::round(pe);  // p in v's dtype for PV
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        s_l[g] = s_l[g] * corr + sum;
-        s_m[g] = m_new;
-        s_corr[g] = corr;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + p @ V over this thread's keys and hd pieces. Dead
-    // keys have p = 0 and V loaded as zeros.
-#pragma unroll
-    for (int g = 0; g < ROWS; ++g) {
-      const float corr = s_corr[g];
-#pragma unroll
-      for (int e = 0; e < EPT; ++e) acc[g][e] *= corr;
-    }
-#pragma unroll
-    for (int p = 0; p < kPasses; ++p) {
-      const int jl = p * KPP + kg;
-      float vf[EPT];
-#pragma unroll
-      for (int n = 0; n < NV; ++n) Elem<T>::unpack(raw[p][n], &vf[n * VEC]);
-#pragma unroll
-      for (int g = 0; g < ROWS; ++g) {
-        const float pg = s_p[g][jl];
-#pragma unroll
-        for (int e = 0; e < EPT; ++e) acc[g][e] = fmaf(pg, vf[e], acc[g][e]);
-      }
-    }
-    __syncthreads();  // s_p is rewritten by the next tile
   }
 
-  // Sum the per-key-group partial accumulators, normalise, write out.
+  // The block's max of each row.
 #pragma unroll
   for (int g = 0; g < ROWS; ++g) {
-    if (g < rows) {  // uniform across the block
+    float mx = m[g];
 #pragma unroll
-      for (int n = 0; n < NV; ++n)
+    for (int off = TPK; off < 32; off <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    if (lane == 0) s_wm[warp][g] = mx;
+  }
+  __syncthreads();
+  // Each key group rescaled to it, then summed over the warp's key groups.
 #pragma unroll
-        for (int e = 0; e < VEC; ++e)
-          s_red[kg][(n * TPK + sub) * VEC + e] = acc[g][n * VEC + e];
-      __syncthreads();
-      const float l = fmaxf(s_l[g], 1e-30f);
-      for (int d = tid; d < HD; d += kThreads) {
-        float a = 0.f;
+  for (int g = 0; g < ROWS; ++g) {
+    float mb = s_wm[0][g];
 #pragma unroll
-        for (int r = 0; r < KPP; ++r) a += s_red[r][d];
-        out[(head0 + g) * HD + d] = Elem<T>::to_out(a / l);
-      }
-      if (tid == 0) lse[head0 + g] = s_m[g] + logf(l);
-      __syncthreads();
+    for (int w = 1; w < kWarps; ++w) mb = fmaxf(mb, s_wm[w][g]);
+    const float c = expf(m[g] - mb);
+    float lg = l[g] * c;
+#pragma unroll
+    for (int off = TPK; off < 32; off <<= 1)
+      lg += __shfl_xor_sync(0xffffffffu, lg, off);
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      float a = acc[g][e] * c;
+#pragma unroll
+      for (int off = TPK; off < 32; off <<= 1)
+        a += __shfl_xor_sync(0xffffffffu, a, off);
+      acc[g][e] = a;
+    }
+    if (lane == 0) s_wl[warp][g] = lg;
+  }
+  // ...then over the warps, in warp order, RCH rows a pass.
+#pragma unroll
+  for (int g0 = 0; g0 < ROWS; g0 += RCH) {
+    if (g0 > 0) __syncthreads();  // s_red is rewritten
+    if (lane < TPK) {
+#pragma unroll
+      for (int g = 0; g < RCH; ++g)
+#pragma unroll
+        for (int n = 0; n < NV; ++n)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            s_red[warp][g][(n * TPK + sub) * VEC + e] =
+                acc[g0 + g][n * VEC + e];
+    }
+    __syncthreads();
+    for (int i = tid; i < RCH * HD; i += kThreads) {
+      const int g = i / HD, d = i % HD;
+      float a = s_red[0][g][d];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) a += s_red[w][g][d];
+      s_acc[g0 + g][d] = a;
     }
   }
+  if (tid < ROWS) {
+    float mb = s_wm[0][tid], lb = s_wl[0][tid];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      mb = fmaxf(mb, s_wm[w][tid]);
+      lb += s_wl[w][tid];
+    }
+    s_m[tid] = mb;
+    s_l[tid] = lb;
+  }
+
+  // The cluster's partials, merged by block rank 0 in rank order.
+  cluster.sync();
+  if (split == 0) {
+    for (int i = tid; i < rows * HD; i += kThreads) {
+      const int g = i / HD, d = i % HD;
+      // Every rank's (m, l, acc) loads issued together; ranks past the
+      // cluster are empty partials and change nothing.
+      float ms[kMaxSplits], ls[kMaxSplits], as[kMaxSplits];
+#pragma unroll
+      for (int r = 0; r < kMaxSplits; ++r) {
+        ms[r] = r < splits ? *cluster.map_shared_rank(&s_m[g], r) : kNegInf;
+        ls[r] = r < splits ? *cluster.map_shared_rank(&s_l[g], r) : 0.f;
+        as[r] = r < splits ? *cluster.map_shared_rank(&s_acc[g][d], r) : 0.f;
+      }
+      float mx = ms[0];
+#pragma unroll
+      for (int r = 1; r < kMaxSplits; ++r) mx = fmaxf(mx, ms[r]);
+      float lt = 0.f, a = 0.f;
+#pragma unroll
+      for (int r = 0; r < kMaxSplits; ++r) {
+        const float w = expf(ms[r] - mx);
+        lt = fmaf(ls[r], w, lt);
+        a = fmaf(as[r], w, a);
+      }
+      lt = fmaxf(lt, 1e-30f);
+      out[(head0 + g) * HD + d] = Elem<T>::to_out(a / lt);
+      if (d == 0) lse[head0 + g] = mx + logf(lt);
+    }
+  }
+  cluster.sync();  // no block leaves while rank 0 reads its partial
 }
 
 template <typename T, int HD, int ROWS>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           int b, int t, int kv, int h, int n_live, float scale,
-           cudaStream_t stream) {
+           int b, int t, int kv, int h, int splits, int n_valid,
+           const int* n_valid_at, float scale, cudaStream_t stream) {
   const int group = h / kv;
-  const dim3 grid(kv, b, (group + ROWS - 1) / ROWS);
-  decode_attention_kernel<T, HD, ROWS><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), t, kv, group, n_live, scale);
+  const int chunks = (group + ROWS - 1) / ROWS;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = splits;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  const dim3 grid(splits, kv * chunks, b);
+  if (splits == 1) {  // a block is a cluster of its own: no attribute
+    decode_attention_kernel<T, HD, ROWS><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out),
+        static_cast<float*>(lse), t, kv, group, chunks, n_valid, n_valid_at,
+        scale);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = 0;
+  config.stream = stream;
+  config.attrs = &cluster;
+  config.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(
+      &config, decode_attention_kernel<T, HD, ROWS>, static_cast<const T*>(q),
+      static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out),
+      static_cast<float*>(lse), t, kv, group, chunks, n_valid, n_valid_at,
+      scale);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int HD>
 int by_rows(const void* q, const void* k, const void* v, void* out, void* lse,
-            int b, int t, int kv, int h, int n_live, float scale,
-            cudaStream_t stream) {
+            int b, int t, int kv, int h, int splits, int n_valid,
+            const int* n_valid_at, float scale, cudaStream_t stream) {
   const int group = h / kv;
   if (group == 1)
-    return launch<T, HD, 1>(q, k, v, out, lse, b, t, kv, h, n_live, scale, stream);
+    return launch<T, HD, 1>(q, k, v, out, lse, b, t, kv, h, splits, n_valid,
+                            n_valid_at, scale, stream);
   if (group == 2)
-    return launch<T, HD, 2>(q, k, v, out, lse, b, t, kv, h, n_live, scale, stream);
+    return launch<T, HD, 2>(q, k, v, out, lse, b, t, kv, h, splits, n_valid,
+                            n_valid_at, scale, stream);
   if (group <= 4)
-    return launch<T, HD, 4>(q, k, v, out, lse, b, t, kv, h, n_live, scale, stream);
-  return launch<T, HD, kMaxRows>(q, k, v, out, lse, b, t, kv, h, n_live, scale,
-                                 stream);
+    return launch<T, HD, 4>(q, k, v, out, lse, b, t, kv, h, splits, n_valid,
+                            n_valid_at, scale, stream);
+  return launch<T, HD, kMaxRows>(q, k, v, out, lse, b, t, kv, h, splits,
+                                 n_valid, n_valid_at, scale, stream);
 }
 
 template <typename T>
 int by_head_dim(const void* q, const void* k, const void* v, void* out,
-                void* lse, int b, int t, int kv, int h, int hd, int n_live,
-                float scale, cudaStream_t stream) {
+                void* lse, int b, int t, int kv, int h, int hd, int splits,
+                int n_valid, const int* n_valid_at, float scale,
+                cudaStream_t stream) {
   switch (hd) {
-    case 64: return by_rows<T, 64>(q, k, v, out, lse, b, t, kv, h, n_live, scale, stream);
-    case 128: return by_rows<T, 128>(q, k, v, out, lse, b, t, kv, h, n_live, scale, stream);
-    case 256: return by_rows<T, 256>(q, k, v, out, lse, b, t, kv, h, n_live, scale, stream);
+    case 64: return by_rows<T, 64>(q, k, v, out, lse, b, t, kv, h, splits, n_valid, n_valid_at, scale, stream);
+    case 128: return by_rows<T, 128>(q, k, v, out, lse, b, t, kv, h, splits, n_valid, n_valid_at, scale, stream);
+    case 256: return by_rows<T, 256>(q, k, v, out, lse, b, t, kv, h, splits, n_valid, n_valid_at, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <typename T>
-int tile_of(int hd) {
+int unit_of(int hd) {
   switch (hd) {
-    case 64: return Shape<T, 64>::TILE;
-    case 128: return Shape<T, 128>::TILE;
-    case 256: return Shape<T, 256>::TILE;
+    case 64: return Shape<T, 64>::UNIT;
+    case 128: return Shape<T, 128>::UNIT;
+    case 256: return Shape<T, 256>::UNIT;
     default: return 0;
   }
 }
@@ -324,24 +472,29 @@ extern "C" {
 
 // q (b, h, hd), k/v (b, t, kv, hd), out (b, h, hd) in one dtype (float32
 // when is_bf16 == 0, else bfloat16), lse (b, h) float32; all contiguous and
-// 16-byte aligned; hd in {64, 128, 256}. n_live = number of live cache
-// columns (0 .. t). Returns the CUDA error code of the launch (0 on
-// success).
+// 16-byte aligned; hd in {64, 128, 256}; 1 <= splits <= 8 blocks per
+// cluster. The query's position is *n_valid_at (an int32 in device memory)
+// when n_valid_at is not null, else n_valid; columns 0 .. position are
+// live. Returns the CUDA error code of the launch (0 on success).
 int decode_attention(const void* q, const void* k, const void* v, void* out,
                      void* lse, int b, int t, int kv, int h, int hd,
-                     int n_live, float scale, int is_bf16, void* stream) {
+                     int splits, int n_valid, const void* n_valid_at,
+                     float scale, int is_bf16, void* stream) {
+  if (splits < 1 || splits > kMaxSplits)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* at = static_cast<const int*>(n_valid_at);
   if (is_bf16)
     return by_head_dim<__nv_bfloat16>(q, k, v, out, lse, b, t, kv, h, hd,
-                                      n_live, scale, s);
-  return by_head_dim<float>(q, k, v, out, lse, b, t, kv, h, hd, n_live, scale,
-                            s);
+                                      splits, n_valid, at, scale, s);
+  return by_head_dim<float>(q, k, v, out, lse, b, t, kv, h, hd, splits,
+                            n_valid, at, scale, s);
 }
 
-// Keys per tile of the kernel for this head_dim and dtype (0 if the kernel
-// does not take the head_dim).
+// Keys per batch of one block (its load unit) for this head_dim and dtype
+// (0 if the kernel does not take the head_dim).
 int decode_attention_tile(int hd, int is_bf16) {
-  return is_bf16 ? tile_of<__nv_bfloat16>(hd) : tile_of<float>(hd);
+  return is_bf16 ? unit_of<__nv_bfloat16>(hd) : unit_of<float>(hd);
 }
 
 const char* decode_attention_error_string(int code) {

@@ -1,7 +1,7 @@
 // Ring collectives for Hopper (sm_90a) over the ranks of a mesh on one
 // device: kernel 5, the ring all-gather, and kernel 6, the all-reduce.
 //
-// Kernel 5, ring_allgather_kernel, replaces mpi_tpu/ops/ring_collectives.py:
+// Kernel 5, allgather_kernel, replaces mpi_tpu/ops/ring_collectives.py:
 // _allgather_kernel. Kernel 6, allreduce_kernel, replaces _allreduce_kernel.
 // On the TPU each device runs its own copy of the kernel and pushes a chunk
 // into its ring neighbour's VMEM with a remote DMA, waiting on a DMA
@@ -11,16 +11,13 @@
 // address and a stride, so a rank's data is reached through a pointer, as a
 // peer's would be over NVLink.
 //
-// Kernel 5 keeps the ring. It is one cooperative launch with a grid of
-// resident blocks: out[r][r] = x[r], then in hop t = 0 .. n - 2 rank r
-// PULLS chunk (r - t - 1) mod n from rank r - 1's output, which rank r - 1
-// received in hop t - 1 (its own chunk for t = 0). A grid-wide barrier
-// (cooperative_groups::this_grid().sync()) takes the place of the
-// semaphore wait between hops; no block waits on a flag that another
-// launch must set, so it cannot deadlock on ranks that are not resident
-// together. In hop t rank r reads chunk (r - t - 1) mod n of out[r - 1]
-// while rank r - 1 writes its chunk (r - t - 2) mod n, so no hop reads what
-// it writes.
+// Kernel 5 does NOT replay the TPU kernel's hops. The ring moves each
+// chunk from rank to rank, n - 1 hops each reading what the last one wrote;
+// but every hop only copies, so what rank r ends with at chunk c is x[c],
+// whatever the route. So one pass gives the same bits: an ordinary
+// grid-stride launch in which each thread loads unit i of rank c's input
+// once (batches of kBatch loads in flight) and stores it at out[r] + c *
+// chunk + i for every rank r. No barrier and no cooperative launch.
 //
 // Kernel 6 does NOT follow the TPU kernel's schedule, but gives its bits.
 // The TPU ring all-reduce is a reduce-scatter of n - 1 hops (in hop t rank r
@@ -50,18 +47,17 @@
 // What bounds them on this card: memory. The least traffic of an all-reduce
 // is every input read once and every output written once, 2 n m elements
 // for n ranks of m, and that is exactly what kernel 6 moves (the ring moved
-// 2 n m + 5 (n - 1) m, 3.2 times as much at n = 8). The all-gather moves
-// 2 n c + 2 n (n - 1) c for chunks of c against a least of n c + n^2 c.
-// Both take 16-byte loads and stores wherever every chunk and every rank's
+// 2 n m + 5 (n - 1) m, 3.2 times as much at n = 8). The least traffic of
+// an all-gather of chunks of c is n c + n^2 c, and that is what kernel 5
+// moves (the ring moved 2 n c + 2 n (n - 1) c, 1.8 times as much at n = 8).
+// Its writes are n times its reads, so the stores set its pace. Both
+// take 16-byte loads and stores wherever every chunk and every rank's
 // buffer is 16-byte aligned (checked at each launch; element-wide
 // otherwise, so a chunk of 24 bytes works).
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -75,10 +71,6 @@ struct Ranks {
   const void* in[kMaxRanks];
   void* out[kMaxRanks];
 };
-
-__device__ __forceinline__ int ring_mod(int a, int n) {
-  return ((a % n) + n) % n;
-}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -157,31 +149,35 @@ allreduce_kernel(const Ranks ranks, int n, long long chunk) {
   }
 }
 
-// ---- kernel 5: ring all-gather ------------------------------------------
+// ---- kernel 5: single-pass all-gather ------------------------------------
 //
-// V is the unit moved (a 2- or 4-byte element, or uint4); rank r's input is
-// one chunk, its output n chunks.
+// V is the unit moved (a 2- or 4-byte element, or uint4); rank c's input is
+// one chunk of `chunk` units, every rank's output n chunks. The stores are
+// st.global.cs (evict first): no output is read again by this launch.
 
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
-ring_allgather_kernel(const Ranks ranks, int n, long long chunk) {
-  cg::grid_group grid = cg::this_grid();
+allgather_kernel(const Ranks ranks, int n, long long chunk) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long tid =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (int r = 0; r < n; ++r) {
-    const V* x = static_cast<const V*>(ranks.in[r]);
-    V* o = static_cast<V*>(ranks.out[r]) + r * chunk;
-    for (long long i = tid; i < chunk; i += stride) o[i] = x[i];
-  }
-  for (int t = 0; t < n - 1; ++t) {
-    grid.sync();
-    for (int r = 0; r < n; ++r) {
-      const long long off = ring_mod(r - t - 1, n) * chunk;
-      V* own = static_cast<V*>(ranks.out[r]) + off;
-      const V* left = static_cast<const V*>(ranks.out[ring_mod(r - 1, n)]) +
-                      off;
-      for (long long i = tid; i < chunk; i += stride) own[i] = left[i];
+  for (int c = 0; c < n; ++c) {
+    const V* x = static_cast<const V*>(ranks.in[c]);
+    for (long long i0 = tid; i0 < chunk; i0 += kBatch * stride) {
+      V u[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const long long i = i0 + b * stride;
+        if (i < chunk) u[b] = x[i];
+      }
+      for (int r = 0; r < n; ++r) {
+        V* o = static_cast<V*>(ranks.out[r]) + c * chunk;
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          const long long i = i0 + b * stride;
+          if (i < chunk) __stcs(o + i, u[b]);
+        }
+      }
     }
   }
 }
@@ -198,29 +194,12 @@ cudaError_t resident_grid(K kern, long long units, dim3* grid) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
                                                         kThreads, 0);
   if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long want = (units + kThreads - 1) / kThreads;
   const long long most = static_cast<long long>(sms) * per_sm;
   *grid = dim3(static_cast<unsigned>(want < 1 ? 1 : (want < most ? want
                                                                  : most)));
   return cudaSuccess;
-}
-
-// One cooperative launch of `kern` on `stream`: as many blocks as the work
-// of one hop (`units` per rank) needs, capped at the blocks that can be
-// resident at once, which grid.sync() requires.
-template <typename K>
-int launch_cooperative(K kern, const Ranks& ranks, int n, long long chunk,
-                       long long units, cudaStream_t stream) {
-  dim3 grid;
-  cudaError_t err = resident_grid(kern, units, &grid);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  Ranks r = ranks;
-  void* args[] = {&r, &n, &chunk};
-  err = cudaLaunchCooperativeKernel((void*)kern, grid, dim3(kThreads), args,
-                                    0, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // One ordinary launch of kernel 6, sized by one chunk's units (the
@@ -229,6 +208,18 @@ template <typename T, int OP, typename V>
 int launch_allreduce(const Ranks& ranks, int n, long long chunk,
                      cudaStream_t stream) {
   auto kern = allreduce_kernel<T, OP, V>;
+  dim3 grid;
+  cudaError_t err = resident_grid(kern, chunk, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<grid, kThreads, 0, stream>>>(ranks, n, chunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One ordinary launch of kernel 5, sized by one chunk's units.
+template <typename V>
+int launch_allgather(const Ranks& ranks, int n, long long chunk,
+                     cudaStream_t stream) {
+  auto kern = allgather_kernel<V>;
   dim3 grid;
   cudaError_t err = resident_grid(kern, chunk, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -312,16 +303,10 @@ int ring_allgather(const void* const* in, void* const* out, int n,
   if (chunk == 0) return 0;
   const Ranks ranks = table(in, out, n);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (aligned16(ranks, n, chunk * elt_size)) {
-    const long long c = chunk * elt_size / 16;
-    return launch_cooperative(ring_allgather_kernel<uint4>, ranks, n, c, c,
-                              s);
-  }
-  if (elt_size == 2)
-    return launch_cooperative(ring_allgather_kernel<uint16_t>, ranks, n,
-                              chunk, chunk, s);
-  return launch_cooperative(ring_allgather_kernel<uint32_t>, ranks, n, chunk,
-                            chunk, s);
+  if (aligned16(ranks, n, chunk * elt_size))
+    return launch_allgather<uint4>(ranks, n, chunk * elt_size / 16, s);
+  if (elt_size == 2) return launch_allgather<uint16_t>(ranks, n, chunk, s);
+  return launch_allgather<uint32_t>(ranks, n, chunk, s);
 }
 
 const char* ring_collectives_error_string(int code) {

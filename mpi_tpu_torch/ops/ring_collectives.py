@@ -6,10 +6,11 @@ the Pallas kernel on its own shard inside ``shard_map`` and pushes chunks to
 its ring neighbour by remote DMA. Here a mesh's ranks may share one device
 (:mod:`mpi_tpu_torch.parallel.mesh`), and each collective is ONE launch of a
 hand-written CUDA kernel over all of them (``csrc/ring_collectives.cu``; see
-the note there for its design and what bounds it). The all-gather kernel
-keeps the ring's hops; the all-reduce kernel is a single pass that folds
-each chunk in the ring's order, so it gives the ring's bits while it reads
-every input once and writes every output once.
+the note there for its design and what bounds it). Both kernels are a
+single pass that reads every input once and writes every output once: the
+all-gather copies each chunk straight to every rank, which is what the
+ring's hops leave there, and the all-reduce folds each chunk in the ring's
+order, so both give the ring's bits.
 
 Layouts follow the JAX global view, so one numpy array feeds both packages:
 
@@ -26,8 +27,8 @@ Layouts follow the JAX global view, so one numpy array feeds both packages:
 The ring runs over every rank of the mesh in order. On a CUDA tensor the
 wrappers launch the kernel (each counts its launches in ``.launches``) or
 raise; on a CPU tensor they run the plain PyTorch version, which replays the
-TPU kernel's hops; the kernels fold and round in the same order, so results
-agree bit for bit.
+TPU kernel's hops; the kernels copy, or fold and round, in the same order,
+so results agree bit for bit.
 """
 
 from __future__ import annotations
@@ -226,7 +227,8 @@ def ring_allgather(x: torch.Tensor, mesh: RankMesh) -> torch.Tensor:
     """Ring all-gather of ``x`` ``(n·c, ...)``, split over the n ranks of
     ``mesh`` on axis 0; returns every rank's copy ``(n, n·c, ...)``.
 
-    CUDA tensors launch kernel 5 (2- or 4-byte elements); CPU tensors run
+    CUDA tensors launch kernel 5 (2- or 4-byte elements), one pass that
+    reads each input once and writes each copy once; CPU tensors run
     :func:`ring_allgather_plain` (any dtype)."""
     n = mesh.size
     if x.dim() < 1 or x.shape[0] % n:

@@ -7,8 +7,9 @@
   only for CPU tensors; any other device raises instead of falling back,
   and a CPU call counts no kernel launch.
 * A missing CUDA compiler is an error, never a stub.
-* The all-reduce kernel is one ordinary launch: no grid barrier, no
-  cooperative launch. The bf16 flash forward and backward multiply on
+* The all-reduce and all-gather kernels are one ordinary launch each: no
+  grid barrier, no cooperative launch. The decode kernel merges its
+  cluster's splits with no atomic. The bf16 flash forward and backward multiply on
   wgmma with p, ds and their transposes in registers, not through shared
   memory; on CUDA the backward takes delta from kernel 2, not from torch
   ops; no launch sets a kernel attribute.
@@ -30,6 +31,7 @@ from mpi_tpu_torch.ops import _build
 from mpi_tpu_torch.ops.attention import (flash_attention, flash_bwd_dkv,
                                          flash_bwd_dq, flash_bwd_dq_delta,
                                          flash_chunk_bwd, flash_fwd)
+from mpi_tpu_torch.ops import decode_attention
 from mpi_tpu_torch.ops.decode_attention import flash_decode_attention
 from mpi_tpu_torch.ops.ring_collectives import (ring_allgather,
                                                 ring_allgather_sharded,
@@ -210,15 +212,83 @@ def _c_function(src: str, name: str) -> str:
     raise AssertionError(f"no definition of {name}")
 
 
-def test_allreduce_kernel_is_one_ordinary_launch():
+@pytest.mark.parametrize("functions", [
+    ("allreduce_kernel", "launch_allreduce", "allreduce_t", "ring_allreduce"),
+    ("allgather_kernel", "launch_allgather", "ring_allgather")],
+    ids=["allreduce", "allgather"])
+def test_allreduce_kernel_is_one_ordinary_launch(functions):
+    """Both ring kernels (all-reduce, all-gather) are one ordinary launch:
+    no grid barrier, no cooperative launch."""
     src = (CSRC / "ring_collectives.cu").read_text()
-    for name in ("allreduce_kernel", "launch_allreduce", "allreduce_t",
-                 "ring_allreduce"):
+    for name in functions:
         body = _c_function(src, name)
         for banned in ("this_grid", ".sync()", "cudaLaunchCooperativeKernel",
                        "launch_cooperative"):
             assert banned not in body, f"{name} uses {banned}"
-    assert "<<<" in _c_function(src, "launch_allreduce")
+    assert "<<<" in _c_function(src, functions[1])
+    for gone in ("cooperative_groups", "launch_cooperative", "grid.sync"):
+        assert gone not in src, f"ring_collectives.cu keeps {gone}"
+
+
+def test_decode_kernel_uses_no_atomics():
+    """Kernel 4 merges its splits in a fixed order through distributed
+    shared memory, with no atomic, so two calls give the same bits."""
+    src = (CSRC / "decode_attention.cu").read_text()
+    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    assert "atomic" not in code.lower()
+    kernel = _c_function(code, "decode_attention_kernel")
+    assert "cluster.sync()" in kernel and "map_shared_rank" in kernel
+    launch = _c_function(code, "launch")
+    assert "cudaLaunchAttributeClusterDimension" in launch
+    assert "cudaLaunchKernelEx" in launch
+
+
+def test_decode_launch_policy_matches_the_kernel_source():
+    """The wrapper's copies of kernel 4's launch policy (threads a block,
+    the load unit ``Shape::UNIT``, ``by_rows``' query rows a block, the
+    largest cluster) agree with decode_attention.cu, read from its source
+    so the CPU can check them."""
+    src = (CSRC / "decode_attention.cu").read_text()
+    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+
+    def const(name):
+        m = re.search(rf"constexpr int {name} = (\d+);", code)
+        assert m, f"no constexpr {name}"
+        return int(m.group(1))
+
+    threads = const("kThreads")
+    assert threads == decode_attention._KERNEL_THREADS
+    assert const("kMaxSplits") == decode_attention._MAX_SPLITS
+    vec = {dt: int(re.search(rf"struct Elem<{cty}> \{{.*?kVec = (\d+);",
+                             code, re.DOTALL).group(1))
+           for dt, cty in ((torch.float32, "float"),
+                           (torch.bfloat16, "__nv_bfloat16"))}
+    shape = re.search(r"struct Shape \{(.*?)\};", code, re.DOTALL).group(1)
+    shape = " ".join(shape.split())
+    cap = re.search(r"TPK = \(HD / VEC < (\d+)\) \? HD / VEC : (\d+);",
+                    shape)
+    assert cap and cap.group(1) == cap.group(2), "TPK's form changed"
+    assert "NV = HD / (VEC * TPK);" in shape
+    assert "KPP = kThreads / TPK;" in shape
+    assert "UNIT = KPP * P;" in shape
+    per = int(re.search(r"P = (\d+) / NV;", shape).group(1))
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in (64, 128, 256):
+            tpk = min(hd // vec[dtype], int(cap.group(1)))
+            unit = threads // tpk * (per // (hd // (vec[dtype] * tpk)))
+            assert decode_attention._load_unit(dtype, hd) == unit, \
+                (dtype, hd)
+    rows = _c_function(code, "by_rows")
+    tests = re.findall(r"if \(group (==|<=) (\d+)\)\s*return launch<T, HD, "
+                       r"(\d+)>", rows)
+    last = re.findall(r"return launch<T, HD, (\w+)>", rows)[-1]
+    assert [op for op, _, _ in tests] == ["==", "==", "<="], tests
+    for group in range(1, 33):
+        picked = next((int(r) for op, g, r in tests
+                       if (group == int(g) if op == "==" else
+                           group <= int(g))),
+                      const(last) if last.startswith("k") else int(last))
+        assert decode_attention._rows(group) == picked, group
 
 
 def test_bf16_flash_forward_keeps_p_in_registers():

@@ -2,8 +2,10 @@
 their plain PyTorch versions, on the card. Skips where there is no CUDA
 device: the kernels have no CPU mode.
 
-Tolerance 0. The all-gather and send/receive kernels take the same hops in
-the same order as their plain versions. The all-reduce kernel is one pass,
+Tolerance 0. The send/receive kernel takes the same hops in the same order
+as its plain version. The all-gather kernel is one pass that copies each
+chunk straight to every rank, which is what the plain version's hops leave
+there, since each hop only copies. The all-reduce kernel is one pass,
 but folds each chunk in the ring's order and rounds to the working dtype at
 each fold, as the plain version's hops do (tests/test_torch_ring_onepass.py
 proves the order on the CPU). So the outputs must be equal bit for bit; the
@@ -140,6 +142,36 @@ def test_allgather_kernel_matches_plain(cuda, n, dtype, rows, inner):
     assert ring_allgather.launches == before + 1
     assert same(got, want)
     assert all(torch.equal(got[r], x) for r in range(n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [3, 8])
+def test_allgather_kernel_unaligned_buffers(cuda, n, dtype):
+    # Chunks of 64 elements but an input that starts 1 element past 16
+    # bytes: the element-wide path, though every chunk is a multiple of 16
+    # bytes.
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(64 * n + 1, generator=g, device=cuda).to(dtype)[1:]
+    assert x.data_ptr() % 16
+    mesh = make_mesh(devices=[cuda] * n)
+    before = ring_allgather.launches
+    got = ring_allgather(x, mesh)
+    torch.cuda.synchronize()
+    assert ring_allgather.launches == before + 1
+    assert same(got, ring_allgather_plain(x, n))
+    assert all(torch.equal(got[r], x) for r in range(n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [3_000_000, 3_000_001])
+def test_allgather_kernel_large_grid(cuda, chunk):
+    # More units per chunk than the resident grid covers in one batch, on
+    # the 16-byte path (chunk 3_000_000) and the element path.
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(8 * chunk, generator=g, device=cuda).to(torch.bfloat16)
+    got = ring_allgather(x, make_mesh(devices=[cuda] * 8))
+    assert same(got, ring_allgather_plain(x, 8))
 
 
 @pytest.mark.cuda
