@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments::
 
 It builds the port's CUDA kernels from ``mpi_tpu_torch/ops/csrc``, holds
 each kernel against its plain PyTorch version on the card, drives the
-port's three paths and checks what comes out:
+port's four paths and checks what comes out:
 
 * serving: the flagship decoder LM through ``generate`` (the
   flash-decode kernel);
@@ -21,13 +21,20 @@ port's three paths and checks what comes out:
   bf16), all-gather its bf16 parameters from eighths, and hand a bf16
   activation around the ring and along a partial pattern (the single-pass
   all-reduce, ring all-gather and send/receive kernels);
+* the device MPI driver: helloworld (8 ranks) and bounce (2 ranks) through
+  ``run_main``, then 8 rank threads all-reduce the flagship's gradient
+  through ``mpi_tpu_torch.allreduce`` on the tree route and on the ring
+  route (the all-reduce kernel), and the functional layer
+  (``parallel.collectives``) all-gathers the bf16 parameters and shifts an
+  activation around the ring (the all-gather and send/receive kernels);
 
 then times the paths and the kernels, and prints:
 
 * a ``{"kernels": [...]}`` line: for each kernel its route, source, the TPU
-  kernel it replaces, its launches on its path, its largest error against
-  the plain version, and its time beside its bound, the plain version's
-  time and one PyTorch library call's time;
+  kernel it replaces, its launches on its path (kernels 5-7: in the
+  driver's phase), its largest error against the plain version, and its
+  time beside its bound, the plain version's time and one PyTorch library
+  call's time;
 * the card's name and power limit as ``nvidia-smi`` gives them;
 * as the last line ``{"ok": true, "device": {...}}``.
 
@@ -906,6 +913,221 @@ def ring_slice(dev, card):
     return launches, rows, errs
 
 
+def driver_slice(dev, card):
+    """The device MPI driver on the card, through the entry points a user
+    calls: helloworld (8 ranks) and bounce (2 ranks) through ``run_main``;
+    8 rank threads all-reducing the flagship's whole gradient through
+    ``mpi_tpu_torch.allreduce``, float32 then bf16, on the default tree
+    route and on the ring route (``RING_MIN_BYTES`` lowered for it: kernel
+    6); and the functional layer, ``parallel.collectives.allgather``
+    (kernel 5) of the bf16 parameters from eighths and ``pshift`` (kernel
+    7) of a bf16 activation per rank. The launch counters are set to 0
+    before and read after. Checks every result, then times the same device
+    work called directly beside each route. Returns {kernel: launches}."""
+    import contextlib
+    import io
+
+    import torch
+
+    import mpi_tpu_torch as M
+    from mpi_tpu_torch import collectives_generic as tgen
+    from mpi_tpu_torch.backends.cuda import run_spmd
+    from mpi_tpu_torch.examples import bounce, helloworld
+    from mpi_tpu_torch.models import init_params
+    from mpi_tpu_torch.models.transformer import _leaves
+    from mpi_tpu_torch.ops.ring_collectives import (
+        ring_allgather, ring_allgather_plain, ring_allreduce,
+        ring_allreduce_plain, ring_allreduce_ranks)
+    from mpi_tpu_torch.parallel import collectives as C
+    from mpi_tpu_torch.parallel import make_mesh, sendrecv, sendrecv_plain
+    from mpi_tpu_torch.train import flagship_train_config
+
+    n = RING_RANKS
+    wrappers = {"ring_allreduce": ring_allreduce,
+                "ring_allgather": ring_allgather, "sendrecv": sendrecv}
+    for w in wrappers.values():
+        w.launches = 0
+
+    # 1. helloworld, 8 ranks on the card: each rank reports its device.
+    def hello():
+        return (helloworld.main(), M.registered().device(),
+                torch.cuda.current_device())
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        out = M.run_main(hello, ["--mpi-ranks", str(n)])
+    printed = text.getvalue().count("Hello to rank")
+    check([o[0] for o in out] ==
+          [[f"Hello to rank {r} from rank {s}" for s in range(n)]
+           for r in range(n)] and printed == n * n,
+          f"helloworld: {printed} greetings printed, want {n * n}")
+    check(all(o[1].type == "cuda" and o[1].index == o[2] for o in out),
+          f"helloworld ranks ran on {[(str(o[1]), o[2]) for o in out]}: "
+          f"want each on a CUDA device, that device its thread's current "
+          f"one")
+    print(f"helloworld through run_main, {n} ranks on {dev}: {n * n} "
+          f"greetings, each checked")
+
+    # 2. bounce, 2 ranks: it checks every echo itself.
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = M.run_main(lambda: bounce.main([]), ["--mpi-ranks", "2"])[0]
+    check(res["device"].startswith("cuda") and res["sizes"] == bounce.SIZES,
+          f"bounce ran on {res['device']} over sizes {res['sizes']}")
+    for size, b_us, t_us in zip(res["sizes"], res["bytes_us"],
+                                res["tensor_us"]):
+        print(f"bounce 2 ranks, size {size}: bytes {b_us!r} us, float64 "
+              f"tensor on {res['device']} {t_us!r} us, mean round trip of "
+              f"{res['reps']} (host clock)  [{card}]")
+
+    # 3. The gradient all-reduce through the driver, on each route.
+    gen = torch.Generator(device=dev).manual_seed(7)
+    leaves = _leaves(init_params(flagship_train_config(), gen, dev))
+    m = sum(x.numel() for x in leaves)  # values of the flattened gradient
+    del leaves
+    calls = 10
+
+    def through_driver(xs):
+        """Each of n rank threads all-reduces its row of ``xs`` once, then
+        ``calls`` times between two CUDA events on rank 0's stream.
+        Returns (every rank's last result, (device ms per collective, host
+        ms per collective on rank 0's clock, which waits for no device
+        work, and the caching allocator's device allocations and retries
+        per collective))."""
+        def main():
+            M.init()
+            try:
+                mine = xs[M.rank()]
+                got = M.allreduce(mine)  # warm-up
+                before = allocator()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    # Drop the last result first, as a training step has
+                    # used its reduced gradient before the next one.
+                    got = None
+                    got = M.allreduce(mine)
+                host = (time.perf_counter() - t0) * 1e3 / calls
+                end.record()
+                grew = [(a - b) / calls for a, b in zip(allocator(), before)]
+                return got, start, end, host, grew
+            finally:
+                M.finalize()
+
+        out = run_spmd(main, n=n)
+        torch.cuda.synchronize()
+        return ([o[0] for o in out],
+                (out[0][1].elapsed_time(out[0][2]) / calls, *out[0][3:]))
+
+    def allocator():
+        stats = torch.cuda.memory_stats()
+        return [stats.get(k, 0) for k in ("num_device_alloc",
+                                          "num_alloc_retries")]
+
+    def own_copies(outs, want, what):
+        check(all(bits_equal(o, want) for o in outs),
+              f"{what}: a rank's result differs")
+        check(len({o.data_ptr() for o in outs}) == n,
+              f"{what}: ranks share a result buffer")
+
+    driver_ms = {}
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        xs = torch.randn(n, m, generator=gen, device=dev).to(dtype)
+        before = ring_allreduce.launches
+        outs, driver_ms["tree", dtype] = through_driver(xs)
+        check(ring_allreduce.launches == before,
+              f"tree route {dtype} launched kernel 6")
+        own_copies(outs, tgen.tree_combine(list(xs.unbind(0)), "sum"),
+                   f"tree route {dtype} vs tree_combine")
+        tree32 = outs[0] if dtype == torch.float32 else None
+        del outs
+        saved = tgen.RING_MIN_BYTES
+        tgen.RING_MIN_BYTES = 1
+        try:
+            before = ring_allreduce.launches
+            outs, driver_ms["ring", dtype] = through_driver(xs)
+            got = ring_allreduce.launches - before
+        finally:
+            tgen.RING_MIN_BYTES = saved
+        check(got == calls + 1, f"ring route {dtype}: {got} kernel-6 "
+              f"launches for {calls + 1} collectives; want one each")
+        own_copies(outs, ring_allreduce_plain(xs)[0],
+                   f"ring route {dtype} vs ring_allreduce_plain")
+        if dtype == torch.float32:
+            ref = xs.sum(0)
+            tol = RING_SUM_TOL_U * 2.0 ** -24 * xs.abs().sum(0)
+            for route, res32 in (("tree", tree32), ("ring", outs[0])):
+                diff = (res32 - ref).abs()
+                check(bool(torch.isfinite(res32).all()) and
+                      bool((diff <= tol).all()),
+                      f"{route} route float32 vs sum(0): worst |diff| / "
+                      f"tol {(diff / tol).max().item()}")
+                worst[route] = (diff / tol).max().item()
+            del ref, tol, diff, tree32
+        del outs, xs
+        torch.cuda.empty_cache()
+
+    # 4. The functional layer over a mesh of n ranks on the card.
+    mesh = make_mesh(devices=[dev] * n)
+    shards = torch.randn(n, m // n, generator=gen,
+                         device=dev).to(torch.bfloat16)
+    acts = torch.randn(n, 8, 1024, 1024, generator=gen,
+                       device=dev).to(torch.bfloat16)
+    params = C.allgather(shards, mesh, tiled=True)
+    shifted = C.pshift(acts, mesh)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    check(all(launches.values()) and
+          launches["ring_allreduce"] == 2 * (calls + 1),
+          f"driver phase launches {launches}: want every kernel, and "
+          f"kernel 6 once per ring collective")
+    flat = shards.reshape(-1)
+    check(all(bits_equal(params[r], flat) for r in range(n)) and
+          bits_equal(params, ring_allgather_plain(flat, n)),
+          "parallel.collectives.allgather differs from its plain version")
+    ring = [(r, (r + 1) % n) for r in range(n)]
+    check(bits_equal(shifted, sendrecv_plain(acts, ring)),
+          "parallel.collectives.pshift differs from its plain version")
+    del params, shifted, shards, acts, flat
+    print(f"driver: {n} ranks on one card all-reduce {m} values each (the "
+          f"flagship's gradient) through mpi_tpu_torch.allreduce, float32 "
+          f"and bf16: the tree route bitwise tree_combine's fold, the ring "
+          f"route bitwise ring_allreduce_plain with one kernel-6 launch per "
+          f"collective, every rank its own buffer; float32 vs sum(0): worst "
+          f"|diff| {worst!r} of the allowed {RING_SUM_TOL_U} u sum|x|; "
+          f"parallel.collectives allgather and pshift bitwise their plain "
+          f"versions; launches {launches}")
+
+    # 5. Times: each route through the driver beside the same device work
+    # called directly, on the same inputs.
+    for dtype in (torch.float32, torch.bfloat16):
+        xs = torch.randn(n, m, generator=gen, device=dev).to(dtype)
+        rows = list(xs.unbind(0))
+
+        def tree_direct():
+            total = tgen.tree_combine(rows, "sum")
+            return [total] + [total.clone() for _ in range(n - 1)]
+
+        direct = {"ring": kernel_ms(lambda: ring_allreduce_ranks(rows), [()],
+                                    calls),
+                  "tree": kernel_ms(tree_direct, [()], calls)}
+        for route in ("tree", "ring"):
+            ms, host_ms, (allocs, retries) = driver_ms[route, dtype]
+            print(f"driver allreduce {route} route, {n} ranks x {m} {dtype}: "
+                  f"{ms!r} ms per collective through mpi_tpu_torch.allreduce "
+                  f"(CUDA events over {calls} after a warm-up; rank 0's host "
+                  f"clock {host_ms!r} ms per call, no device wait; "
+                  f"{allocs!r} device allocations and {retries!r} allocator "
+                  f"retries per call); the same device work called directly "
+                  f"{direct[route]!r} ms; driver's own cost "
+                  f"{ms - direct[route]!r} ms  [{card}]")
+        del xs, rows
+        torch.cuda.empty_cache()
+    return launches
+
+
 def decode_times(dev, gen, card, cfg):
     """Kernel 4 at the flagship decode shape (n_valid 0, 128 and 255) and
     at a long cache of the same widths (t 8192, n_valid 8191): kernel,
@@ -1200,9 +1422,14 @@ def main() -> int:
 
     # ---- 6. the device collective layer: 8 ranks on the card -----------
     ring_launches, ring_rows, slice_err = ring_slice(dev, card)
+    print(f"collective layer launches (phase 6): {ring_launches}")
     torch.cuda.empty_cache()
 
-    # ---- 7. result ------------------------------------------------------
+    # ---- 7. the device MPI driver: rank threads on the card ------------
+    driver_launches = driver_slice(dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- 8. result ------------------------------------------------------
     source = "mpi_tpu_torch/ops/csrc/flash_attention.cu"
     kernels = []
     for name, replaces, n in zip(
@@ -1230,7 +1457,7 @@ def main() -> int:
              "mpi_tpu/parallel/p2p.py:158")):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
-                        "launches": ring_launches[name],
+                        "launches": driver_launches[name],
                         "max_abs_err": max(ring_err[name], slice_err[name]),
                         **ring_rows[name]})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

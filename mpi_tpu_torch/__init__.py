@@ -15,11 +15,31 @@ Ported so far, for the flagship decoder LM (``models/``):
 - the device collective layer: a rank mesh whose ranks may share one
   device (``parallel/mesh.py``), the ring all-gather and all-reduce
   kernels (``ops/ring_collectives.py``) and the static send/receive
-  kernel (``parallel/p2p.py``), each one launch over all ranks.
+  kernel (``parallel/p2p.py``), each one launch over all ranks, and the
+  collectives over them (``parallel/collectives.py``);
+- the device MPI driver: the reference's API as a facade (``api.py``,
+  re-exported here: ``init``, ``rank``, ``size``, ``send``, ``receive``,
+  the collectives, ...) over the cuda driver, one thread per rank over the
+  CUDA devices (``backends/cuda.py``), started by ``run_main``
+  (``python -m mpi_tpu_torch.examples.helloworld --mpi-ranks 4``).
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.
 """
 
 import torch  # noqa: F401  (the port's one framework)
 
+from .api import (Interface, MpiError, NotInitializedError, TagError,
+                  allgather, allreduce, alltoall, barrier, bcast, exscan,
+                  finalize, gather, init, iprobe, rank, receive, reduce,
+                  reduce_scatter, register, registered, scan, scatter, send,
+                  sendrecv, size, wtime)
+from .runner import run_main, selected_backend
+
 __version__ = "0.1.0"
+
+__all__ = ["Interface", "MpiError", "NotInitializedError", "TagError",
+           "allgather", "allreduce", "alltoall", "barrier", "bcast",
+           "exscan", "finalize", "gather", "init", "iprobe", "rank",
+           "receive", "reduce", "reduce_scatter", "register", "registered",
+           "run_main", "scan", "scatter", "selected_backend", "send",
+           "sendrecv", "size", "wtime"]

@@ -20,6 +20,9 @@ Layouts follow the JAX global view, so one numpy array feeds both packages:
   ``P("rank")`` in and out. ``m`` must divide by n.
 * :func:`ring_allreduce_sharded` returns the ``(m, ...)`` reduction and pads
   ``m`` to a multiple of n.
+* :func:`ring_allreduce_ranks` takes a list of n per-rank tensors and
+  returns n results, each its own tensor: the rank-thread driver's entry
+  (``backends/cuda.py``), one launch on the ranks' own buffers.
 * :func:`ring_allgather` takes ``x`` ``(n·c, ...)``, split over the ranks on
   axis 0, and returns every rank's gathered copy, ``(n, n·c, ...)``;
   :func:`ring_allgather_sharded` returns one ``(n·c, ...)`` copy.
@@ -35,30 +38,21 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import List, Sequence
 
 import torch
 
 from . import _build
+from ..collectives_generic import combine
 from ..parallel.mesh import RankMesh, mesh_device, rank_pointers
 
 __all__ = ["ring_allgather", "ring_allreduce", "ring_allgather_sharded",
-           "ring_allreduce_sharded", "ring_allgather_plain",
-           "ring_allreduce_plain"]
+           "ring_allreduce_sharded", "ring_allreduce_ranks",
+           "ring_allgather_plain", "ring_allreduce_plain",
+           "ALLREDUCE_DTYPES"]
 
 _OPS = ("sum", "max", "min", "prod")  # kernel 6's op codes, in order
-_ALLREDUCE_DTYPES = (torch.float32, torch.bfloat16)
-
-
-def _combine(a: torch.Tensor, b: torch.Tensor, op: str) -> torch.Tensor:
-    if op == "sum":
-        return a + b
-    if op == "max":
-        return torch.maximum(a, b)
-    if op == "min":
-        return torch.minimum(a, b)
-    if op == "prod":
-        return a * b
-    raise ValueError(f"mpi_tpu_torch: unknown ring op {op!r}")
+ALLREDUCE_DTYPES = (torch.float32, torch.bfloat16)  # kernel 6 takes these
 
 
 # --------------------------------------------------------------------------
@@ -82,7 +76,7 @@ def ring_allreduce_plain(contribs: torch.Tensor, op: str = "sum"
     left = (ranks - 1) % n
     for t in range(n - 1):
         c = (ranks - t - 1) % n
-        out[ranks, c] = _combine(out[ranks, c], out[left, c], op)
+        out[ranks, c] = combine(out[ranks, c], out[left, c], op)
     for t in range(n - 1):
         c = (ranks - t) % n
         out[ranks, c] = out[left, c]
@@ -142,25 +136,42 @@ def _raise_on(err: int, name: str) -> None:
                            f"{msg} (cudaError {err})")
 
 
-def _launch_allreduce(contribs: torch.Tensor, op: str) -> torch.Tensor:
-    if contribs.dtype not in _ALLREDUCE_DTYPES:
+def _check_allreduce_dtype(dtype: torch.dtype) -> None:
+    if dtype not in ALLREDUCE_DTYPES:
         raise TypeError(f"mpi_tpu_torch: the ring all-reduce kernel takes "
-                        f"float32 or bfloat16; got {contribs.dtype}")
+                        f"float32 or bfloat16; got {dtype}")
+
+
+def _run_allreduce(ins, outs, chunk: int, dtype: torch.dtype, op: str,
+                   device: torch.device) -> None:
+    """One launch of kernel 6 over per-rank pointer tables ``ins`` and
+    ``outs`` (rank r's buffer at index r), ``chunk`` elements per rank and
+    chunk, on ``device``'s current stream."""
     lib = _kernel_lib()
+    n = len(ins)
+    if n > lib.ring_collectives_max_ranks():
+        raise ValueError(f"mpi_tpu_torch: ring_allreduce takes at most "
+                         f"{lib.ring_collectives_max_ranks()} ranks; got {n}")
+    with torch.cuda.device(device):
+        err = lib.ring_allreduce(
+            ins, outs, n, chunk, int(dtype == torch.bfloat16),
+            _OPS.index(op), torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(err, "ring_allreduce")
+    ring_allreduce.launches += 1
+
+
+def _launch_allreduce(contribs: torch.Tensor, op: str) -> torch.Tensor:
+    _check_allreduce_dtype(contribs.dtype)
     n = contribs.shape[0]
-    _check_kernel_input("ring_allreduce", contribs, n,
-                        lib.ring_collectives_max_ranks())
+    if not contribs.is_contiguous():
+        raise ValueError("mpi_tpu_torch: ring_allreduce needs a contiguous "
+                         "tensor")
     out = torch.empty_like(contribs)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(contribs.device):
-        err = lib.ring_allreduce(
-            rank_pointers(contribs), rank_pointers(out), n,
-            contribs[0].numel() // n, int(contribs.dtype == torch.bfloat16),
-            _OPS.index(op),
-            torch.cuda.current_stream(contribs.device).cuda_stream)
-    _raise_on(err, "ring_allreduce")
-    ring_allreduce.launches += 1
+    _run_allreduce(rank_pointers(contribs), rank_pointers(out),
+                   contribs[0].numel() // n, contribs.dtype, op,
+                   contribs.device)
     return out
 
 
@@ -259,6 +270,63 @@ def ring_allreduce_sharded(contribs: torch.Tensor, mesh: RankMesh,
             (n, pad, *contribs.shape[2:]))], dim=1)
     out = ring_allreduce(contribs, mesh, op)[0]
     return out[:m] if pad else out
+
+
+def ring_allreduce_ranks(inputs: Sequence[torch.Tensor], op: str = "sum"
+                         ) -> List[torch.Tensor]:
+    """The ring all-reduce of ``inputs``, one tensor per rank in rank
+    order, all of one shape and dtype on one device; returns one result per
+    rank, each its own tensor of the input shape. The fold order is that of
+    :func:`ring_allreduce` over the flattened payloads padded with zeros to
+    a multiple of the rank count, which is the JAX package's canonical ring
+    order (``collectives_generic.ring_combine``).
+
+    CUDA tensors: one launch of kernel 6 on the ranks' own buffers through
+    its per-rank pointer table, with no stack; a payload whose size does
+    not divide by the rank count is first padded, with a copy. CPU tensors
+    run :func:`ring_allreduce_plain` over the padded stack."""
+    if op not in _OPS:
+        raise ValueError(f"mpi_tpu_torch: unknown ring op {op!r}")
+    n = len(inputs)
+    if n == 0:
+        raise ValueError("mpi_tpu_torch: ring_allreduce_ranks needs one "
+                         "tensor per rank; got none")
+    first = inputs[0]
+    for r, x in enumerate(inputs):
+        if (x.shape, x.dtype, x.device) != (first.shape, first.dtype,
+                                             first.device):
+            raise ValueError(
+                f"mpi_tpu_torch: ring_allreduce_ranks: rank {r} holds "
+                f"{tuple(x.shape)} {x.dtype} on {x.device}, rank 0 "
+                f"{tuple(first.shape)} {first.dtype} on {first.device}")
+    if first.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"mpi_tpu_torch: ring_allreduce_ranks runs on cuda "
+                         f"(kernel) or cpu (plain); got {first.device}")
+    size = first.numel()
+    m = -(-size // n)  # elements per chunk; n chunks per rank
+    pad = n * m - size
+    if first.device.type == "cpu":
+        stack = first.new_zeros((n, n * m))
+        for r, x in enumerate(inputs):
+            stack[r, :size] = x.reshape(-1)
+        out = ring_allreduce_plain(stack, op)
+        return [out[r, :size].reshape(first.shape).clone() for r in range(n)]
+    _check_allreduce_dtype(first.dtype)
+    flats = []
+    for x in inputs:
+        if not x.is_contiguous():
+            raise ValueError("mpi_tpu_torch: ring_allreduce_ranks needs "
+                             "contiguous tensors")
+        flat = x.reshape(-1)
+        flats.append(torch.cat([flat, flat.new_zeros(pad)]) if pad else flat)
+    outs = [torch.empty(n * m, dtype=first.dtype, device=first.device)
+            for _ in range(n)]
+    if size:
+        table = (ctypes.c_void_p * n)
+        _run_allreduce(table(*[f.data_ptr() for f in flats]),
+                       table(*[o.data_ptr() for o in outs]), m, first.dtype,
+                       op, first.device)
+    return [o[:size].view(first.shape) for o in outs]
 
 
 ring_allreduce.launches = 0

@@ -1,7 +1,8 @@
-"""The port's device collective layer: the rank mesh, and static
-point-to-point exchange between its ranks (counterpart of
-``mpi_tpu/parallel``; the ring collectives live in
-``mpi_tpu_torch/ops/ring_collectives.py``, as in the JAX package)."""
+"""The port's device collective layer: the rank mesh, static
+point-to-point exchange between its ranks, and the collectives over them
+(``parallel/collectives.py``, imported as a module as in the JAX package);
+counterpart of ``mpi_tpu/parallel``. The ring kernels live in
+``mpi_tpu_torch/ops/ring_collectives.py``, as in the JAX package."""
 
 from .mesh import (RANK_AXIS, RankMesh, describe_topology, make_mesh,
                    make_mesh_2d, mesh_devices, rank_axis)

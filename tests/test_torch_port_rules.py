@@ -7,6 +7,8 @@
   only for CPU tensors; any other device raises instead of falling back,
   and a CPU call counts no kernel launch.
 * A missing CUDA compiler is an error, never a stub.
+* The cuda driver waits for the device nowhere on its path: no
+  ``torch.cuda.synchronize`` in ``backends/cuda.py``.
 * The all-reduce and all-gather kernels are one ordinary launch each: no
   grid barrier, no cooperative launch. The decode kernel merges its
   cluster's splits with no atomic. The bf16 flash forward and backward multiply on
@@ -36,8 +38,12 @@ from mpi_tpu_torch.ops.decode_attention import flash_decode_attention
 from mpi_tpu_torch.ops.ring_collectives import (ring_allgather,
                                                 ring_allgather_sharded,
                                                 ring_allreduce,
+                                                ring_allreduce_ranks,
                                                 ring_allreduce_sharded)
 from mpi_tpu_torch.parallel import make_mesh, sendrecv, sendrecv_sharded
+from mpi_tpu_torch.parallel import collectives as pcoll
+from mpi_tpu_torch import run_main
+from mpi_tpu_torch.backends import cuda as cuda_driver
 
 ROOT = Path(__file__).resolve().parent.parent
 CFG = TransformerConfig(vocab=64, d_model=32, n_heads=4, n_layers=1,
@@ -53,7 +59,12 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, mpi_tpu_torch, mpi_tpu_torch.models, "
             "mpi_tpu_torch.serve, mpi_tpu_torch.train, mpi_tpu_torch.ops, "
             "mpi_tpu_torch.ops.ring_collectives, mpi_tpu_torch.parallel, "
-            "mpi_tpu_torch.parallel.mesh, mpi_tpu_torch.parallel.p2p\n"
+            "mpi_tpu_torch.parallel.mesh, mpi_tpu_torch.parallel.p2p, "
+            "mpi_tpu_torch.parallel.collectives, mpi_tpu_torch.api, "
+            "mpi_tpu_torch.collectives_generic, mpi_tpu_torch.runner, "
+            "mpi_tpu_torch.backends.cuda, mpi_tpu_torch.backends.rendezvous, "
+            "mpi_tpu_torch.examples.helloworld, "
+            "mpi_tpu_torch.examples.bounce\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mpi_tpu'))\n"
             "print(bad)\n"
@@ -90,6 +101,71 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert generate(params, prompt, CFG, 2, device="cpu").shape == (1, 2)
     assert set(init_state(torch.Generator().manual_seed(0),
                           device="cpu")) == {"params", "opt"}
+
+
+def test_driver_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cuda_driver.CudaNetwork()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cuda_driver.CudaNetwork(4, oversubscribe=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cuda_driver.run_spmd(lambda: None, n=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_main(lambda: None, ["--mpi-ranks", "2"])
+    # Asking for the CPU by name is the one way onto it.
+    assert cuda_driver.run_spmd(lambda: 1, n=2, device="cpu") == [1, 1]
+    assert run_main(lambda: 2, ["--mpi-ranks", "2",
+                                "--mpi-device", "cpu"]) == [2, 2]
+
+
+def test_no_environment_variable_moves_run_main_off_the_card(monkeypatch):
+    """Only the program's own ``--mpi-device`` flag puts its ranks on the
+    CPU: with the backend and rank count from the environment, as the JAX
+    runner reads them, and a device named there too, ``run_main`` stays on
+    CUDA, which raises here."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("MPI_TPU_BACKEND", "cuda")
+    monkeypatch.setenv("MPI_TPU_RANKS", "2")
+    monkeypatch.setenv("MPI_TPU_DEVICE", "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_main(lambda: None, [])
+
+
+def _code_of(src: str) -> str:
+    """``src`` without comments and docstrings."""
+    import ast
+    import io
+    import tokenize
+
+    docs = set()
+    for node in ast.walk(ast.parse(src)):
+        body = getattr(node, "body", None)
+        if isinstance(body, list) and body and isinstance(
+                body[0], ast.Expr) and isinstance(
+                getattr(body[0], "value", None), ast.Constant) and isinstance(
+                body[0].value.value, str):
+            docs.add(body[0].lineno)
+    out = []
+    for tok in tokenize.generate_tokens(io.StringIO(src).readline):
+        if tok.type == tokenize.COMMENT:
+            continue
+        if tok.type == tokenize.STRING and tok.start[0] in docs:
+            continue
+        out.append(tok.string)
+    return " ".join(out)
+
+
+def test_cuda_driver_never_synchronizes():
+    """No path of the driver waits for the device on the host: the
+    collectives order streams with events (wait_stream), and a host wait
+    per collective would hide what the driver costs."""
+    code = _code_of((ROOT / "mpi_tpu_torch" / "backends" /
+                     "cuda.py").read_text())
+    assert "wait_stream" in code
+    for banned in ("synchronize", "cudaDeviceSynchronize", ".item (",
+                   ".cpu ("):
+        assert banned not in code, banned
 
 
 def test_generate_refuses_params_on_another_device():
@@ -164,9 +240,14 @@ def test_collective_wrappers_never_fall_back_off_the_cpu():
     x = torch.empty((4, 8), device="meta")
     calls = [lambda: ring_allreduce(x, mesh),
              lambda: ring_allreduce_sharded(x, mesh),
+             lambda: ring_allreduce_ranks(list(x)),
              lambda: ring_allgather(x, mesh),
              lambda: sendrecv(x, mesh, [(0, 1)]),
-             lambda: sendrecv_sharded(x, mesh, [(0, 1)])]
+             lambda: sendrecv_sharded(x, mesh, [(0, 1)]),
+             lambda: pcoll.ring_allreduce(x, mesh),
+             lambda: pcoll.ring_reduce_scatter(x, mesh),
+             lambda: pcoll.allgather(x, mesh),
+             lambda: pcoll.pshift(x, mesh)]
     for call in calls:
         with pytest.raises(ValueError, match="cuda .kernel. or cpu"):
             call()
@@ -183,6 +264,11 @@ def test_cpu_collective_calls_are_not_counted_as_kernel_launches():
     ring_allgather_sharded(x, mesh)
     sendrecv(x, mesh, [(0, 1), (1, 0)])
     sendrecv_sharded(x, mesh, [(2, 3)])
+    ring_allreduce_ranks(list(torch.randn(4, 5)))
+    pcoll.ring_allreduce(x, mesh)
+    pcoll.ring_reduce_scatter(x, mesh)
+    pcoll.allgather(x, mesh)
+    pcoll.pshift(x, mesh)
     assert [w.launches for w in wrappers] == before
 
 
