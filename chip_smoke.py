@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments::
 
 It builds the port's CUDA kernels from ``mpi_tpu_torch/ops/csrc``, holds
 each kernel against its plain PyTorch version on the card, drives the
-port's four paths and checks what comes out:
+port's paths and checks what comes out:
 
 * serving: the flagship decoder LM through ``generate`` (the
   flash-decode kernel);
@@ -35,13 +35,21 @@ port's four paths and checks what comes out:
   hop); and cache-parallel decode over 8 shards of a cache of 8192 (the
   flash-decode kernel's cluster path), held against one call over the
   whole cache;
+* data-parallel training: the flagship over 8 dp ranks on the card through
+  ``make_train_step(cfg, mesh=...)``, plain dp (the all-reduce kernel on
+  the ranks' gradient bucket), ZeRO-1 (its reduce-scatter, and the
+  all-gather kernel for the parameters) and FSDP (the all-gather kernel
+  before each block), held against the single-device step, against each
+  other bit for bit, and against a faulty control; and a (dp 2, sp 2, tp
+  2) step with zigzag ring attention, FSDP against plain dp;
 
 then times the paths and the kernels, and prints:
 
 * a ``{"kernels": [...]}`` line: for each kernel its route, source, the TPU
   kernel it replaces, its launches on its path (kernels 5-7: in the
   driver's phase; kernels 1-4 and 7 also ``long_context_launches``, on the
-  long-context phase), its largest error against the plain version, and
+  long-context phase; every kernel ``sharded_launches``, on the
+  data-parallel phase), its largest error against the plain version, and
   its time beside its bound, the plain version's time and one PyTorch
   library call's time;
 * the card's name and power limit as ``nvidia-smi`` gives them;
@@ -144,6 +152,31 @@ LONG_LOSS_RTOL = 1e-4
 LONG_STEPS = 5
 LONG_IMPLS = ("flash", "ring_flash", "zigzag_flash", "ulysses_flash")
 CACHE_SHARDS = 8
+
+# Data-parallel training (phase 9): the flagship over 8 dp ranks on the
+# card, plain dp, ZeRO-1 and FSDP against the single-device step and
+# against each other, from one seeded state and batch.
+DP_RANKS = 8
+DP_STEPS = 3
+DP_TIMED_STEPS = 3
+# Plain dp against the single-device step. Each dp rank runs its own row of
+# the batch, so cuBLAS and the flash kernels see batch 1 where the single
+# step sees 8 and bf16 rounds elsewhere, and the ranks' mean loss and the
+# ring's fold order differ from the whole batch's mean. Measured (NVIDIA
+# H100 80GB HBM3, 700 W): relative loss gaps 0, 2.6e-6, 4.4e-6 over the
+# three steps; the faulty control (rank 0's gradient alone) missed plain
+# dp's step-2 loss by 2.8e-2. DP_LOSS_RTOL sits between them: 23 times the
+# sound gap, 276 times under the control's miss.
+DP_LOSS_RTOL = 1e-4
+# ||p_dp - p_one|| / ||p_one - p_0|| over every leaf after DP_STEPS steps:
+# the parameters' gap relative to how far the steps moved them. AdamW's
+# first update is about lr·sign(g), so a bf16 rounding flip of a small
+# gradient's sign moves its element by 2 lr. Measured (same card): 0.018
+# sound, 1.23 for the control. DP_PARAM_REL sits between them.
+DP_PARAM_REL = 1e-1
+# The composition step: 2 layers, seq 2048, batch 4, zigzag_flash over a
+# (dp 2, sp 2, tp 2) mesh, fsdp against plain dp.
+COMPOSE = dict(layers=2, seq=2048, batch=4, steps=2)
 
 N_REQUESTS = 3
 BATCH = 8
@@ -326,6 +359,15 @@ def check_flash_kernels(dev, gen):
         (8, 1024, 512, 8, 8, 128, False),
         (8, 512, 1024, 8, 8, 128, False),
         (8, 512, 512, 8, 8, 128, True),
+        # The data-parallel chunks (phase 9): each of 8 dp ranks runs its
+        # own row of the flagship batch; the composition step's zigzag
+        # over sp 2 at seq 2048, 2 rows a dp rank (1 or 2 chunks folded
+        # into the batch).
+        (1, 1024, 1024, 8, 8, 128, True),
+        (2, 1024, 512, 8, 8, 128, False),
+        (2, 512, 1024, 8, 8, 128, False),
+        (4, 512, 512, 8, 8, 128, False),
+        (4, 512, 512, 8, 8, 128, True),
         (8193, 64, 64, 8, 8, 64, True),     # b * h = 65544 > grid y's 65535
     ]
     worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
@@ -480,6 +522,10 @@ def kernel_group(name: str) -> str:
         return "matrix products (cuBLAS)"
     if "multi_tensor_apply" in low:
         return "AdamW (foreach)"
+    if "allreduce_kernel" in low:
+        return "all-reduce kernel 6"
+    if "allgather_kernel" in low:
+        return "all-gather kernel 5"
     return "elementwise, reductions, copies"
 
 
@@ -487,7 +533,10 @@ def profile_steps(run, n, label, step_ms, card):
     """Where a step's device time goes: torch.profiler over ``n`` calls of
     ``run`` (one step each; the caller has warmed it up), device time by
     kernel and by group. The profiler slows the host, so the busy share is
-    also given against ``step_ms``, the step's time measured without it."""
+    also given against ``step_ms``, the step's time measured without it.
+    Returns ``{"groups": {group: (ms, launches) per step}, "busy": busy
+    share of the step without the profiler, "launches": per step}``, or
+    None when the profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -513,7 +562,7 @@ def profile_steps(run, n, label, step_ms, card):
     if not kernels:
         print(f"{label} profile: the profiler saw no device time; "
               f"breakdown not measured")
-        return
+        return None
     busy = sum(ms for ms, _, _ in kernels)
     groups = {}
     for ms, count, name in kernels:
@@ -531,6 +580,9 @@ def profile_steps(run, n, label, step_ms, card):
         print(f"  {name}: {ms!r} ms per step, {count!r} launches")
     for ms, count, name in sorted(kernels, reverse=True)[:12]:
         print(f"    {ms!r} ms, {count!r} launches: {name[:110]}")
+    return {"groups": {k: tuple(v) for k, v in groups.items()},
+            "busy": busy / step_ms,
+            "launches": sum(c for _, c, _ in kernels)}
 
 
 def train_profile(dev, card, step_ms):
@@ -560,7 +612,7 @@ def flash_vs_dense(dev):
     import torch
 
     from mpi_tpu_torch.models import init_params, loss_fn
-    from mpi_tpu_torch.models.transformer import _leaves
+    from mpi_tpu_torch.parallel.zero import tree_leaves
     from mpi_tpu_torch.train import flagship_train_config
 
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
@@ -570,7 +622,7 @@ def flash_vs_dense(dev):
         cfg = flagship_train_config(dtype=torch.float32,
                                     attention_impl=impl)
         params = init_params(cfg, torch.Generator().manual_seed(0))
-        leaves = _leaves(params)
+        leaves = tree_leaves(params)
         for x in leaves:
             x.requires_grad_(True)
         loss = loss_fn(params, tokens, cfg)
@@ -828,7 +880,7 @@ def ring_slice(dev, card):
     import torch
 
     from mpi_tpu_torch.models import init_params
-    from mpi_tpu_torch.models.transformer import _leaves
+    from mpi_tpu_torch.parallel.zero import tree_leaves
     from mpi_tpu_torch.ops.ring_collectives import (
         ring_allgather, ring_allgather_plain, ring_allreduce,
         ring_allreduce_plain)
@@ -840,7 +892,7 @@ def ring_slice(dev, card):
     n = RING_RANKS
     mesh = make_mesh(devices=[dev] * n)
     gen = torch.Generator(device=dev).manual_seed(6)
-    leaves = _leaves(init_params(flagship_train_config(), gen, dev))
+    leaves = tree_leaves(init_params(flagship_train_config(), gen, dev))
     m = sum(x.numel() for x in leaves)  # values of the flattened gradient
     del leaves
     grads32 = torch.randn(n, m, generator=gen, device=dev)
@@ -992,7 +1044,7 @@ def driver_slice(dev, card):
     from mpi_tpu_torch.backends.cuda import run_spmd
     from mpi_tpu_torch.examples import bounce, helloworld
     from mpi_tpu_torch.models import init_params
-    from mpi_tpu_torch.models.transformer import _leaves
+    from mpi_tpu_torch.parallel.zero import tree_leaves
     from mpi_tpu_torch.ops.ring_collectives import (
         ring_allgather, ring_allgather_plain, ring_allreduce,
         ring_allreduce_plain, ring_allreduce_ranks)
@@ -1039,7 +1091,7 @@ def driver_slice(dev, card):
 
     # 3. The gradient all-reduce through the driver, on each route.
     gen = torch.Generator(device=dev).manual_seed(7)
-    leaves = _leaves(init_params(flagship_train_config(), gen, dev))
+    leaves = tree_leaves(init_params(flagship_train_config(), gen, dev))
     m = sum(x.numel() for x in leaves)  # values of the flattened gradient
     del leaves
     calls = 10
@@ -1475,6 +1527,371 @@ def long_context_slice(dev, gen, card):
     return launches, errs
 
 
+def dp_launches(mode, n, layers, rest, remat=False):
+    """Launches of kernels 1, 2, 3, 5 and 6 in one training step, counted
+    from the code (``models/transformer.py``, ``_DataParallel``): each of
+    the n dp ranks runs its own forward and backward, kernel 1 once per
+    layer (twice under remat), kernels 2 and 3 once; plain dp reduces the
+    bucket in one kernel-6 launch; zero1 and fsdp reduce-scatter it in one
+    and all-reduce the replicated leaves in one more when there are any;
+    zero1 gathers the parameters in one kernel-5 launch; fsdp gathers, for
+    each rank, the leaves outside the blocks once and each block's weights
+    at each use (twice under remat). The control reduces nothing. ``"one"``
+    is the single-device step."""
+    replay = 2 if remat else 1
+    ranks = 1 if mode == "one" else n
+    k6 = {"one": 0, "control": 0, "dp": 1}.get(mode, 1 + bool(rest))
+    k5 = {"zero1": 1, "fsdp": n * (1 + layers * replay)}.get(mode, 0)
+    return [ranks * layers * replay, ranks * layers, ranks * layers, k5, k6]
+
+
+def dp_slice(dev, card):
+    """Phase 9: data-parallel training of the flagship (8 layers, seq 1024,
+    batch 8, bf16 over float32 masters, flash attention, AdamW at lr 1e-3)
+    over DP_RANKS dp ranks of a ``("dp",)`` mesh on the card, every variant
+    from one seeded set of parameters and one seeded batch, DP_STEPS steps
+    each: (a) the single-device step, (b) plain dp, (c) zero1, (d) fsdp,
+    (e) a faulty control, plain dp with its reduction replaced by rank 0's
+    gradient alone. Checks: the launches of kernels 1-3, 5 and 6 in every
+    step against dp_launches; (b) against (a) within DP_LOSS_RTOL and
+    DP_PARAM_REL, (c) and (d) against (b) bit for bit (every leaf is
+    sharded, so all three fold the same bucket in the same order); the
+    control outside both tolerances; falling losses; each rank's moment
+    bytes (zero1) and parameter bytes (fsdp) 1/dp of plain dp's. Then fsdp
+    under remat (each block gathered again in the backward) for DP_STEPS
+    steps against fsdp without it, losses and parameters bit for bit, the
+    composition step (COMPOSE: fsdp against plain dp over a (dp 2, sp 2, tp
+    2) mesh with zigzag_flash, which puts kernel 7 on the path), kernels 5
+    and 6 against their plain versions at this phase's shapes, bitwise,
+    their times there, and ms per step of (a)-(d) with a profile of one
+    step each. Returns ({kernel: launches on this phase's main path, (b)-(d)
+    and the composition step}, {kernel: max |kernel - plain|})."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from mpi_tpu_torch.models import (full_params, init_params, make_mesh_nd,
+                                      make_train_step, rank_state)
+    from mpi_tpu_torch.parallel.zero import tree_leaves
+    from mpi_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
+                                             flash_fwd)
+    from mpi_tpu_torch.ops.ring_collectives import (
+        ring_allgather, ring_allgather_plain, ring_allreduce,
+        ring_allreduce_plain)
+    from mpi_tpu_torch.parallel import sendrecv
+    from mpi_tpu_torch.parallel.collectives import ring_reduce_scatter
+    from mpi_tpu_torch.parallel.mesh import axis_ring
+    from mpi_tpu_torch.train import flagship_train_config
+
+    tmod = importlib.import_module("mpi_tpu_torch.models.transformer")
+    wrappers = {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
+                "flash_bwd_dkv": flash_bwd_dkv, "ring_allgather":
+                ring_allgather, "ring_allreduce": ring_allreduce,
+                "sendrecv": sendrecv}
+    names = list(wrappers)
+
+    def counts():
+        return [wrappers[k].launches for k in names]
+
+    def clone(tree):
+        if isinstance(tree, dict):
+            return {k: clone(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [clone(v) for v in tree]
+        return tree.detach().clone()
+
+    n = DP_RANKS
+    cfg = flagship_train_config()
+    layers = cfg.n_layers
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (8, cfg.max_seq))).to(dev)
+    params0 = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    mesh = make_mesh_nd(n, ("dp",), [dev] * n)
+    flags = {"one": {}, "dp": {}, "control": {}, "zero1": {"zero1": True},
+             "fsdp": {"fsdp": True}}
+
+    def run(mode, c=cfg, m=mesh, p0=params0, toks=tokens, steps=DP_STEPS,
+            want=None):
+        """``steps`` steps of ``mode`` from a copy of ``p0``: (step, state,
+        losses); each step's launches of kernels 1-3, 5 and 6 (and 7, with
+        ``want`` of six) must equal ``want`` or dp_launches."""
+        init_state, step = make_train_step(
+            c, mesh=None if mode == "one" else m, **flags[mode])
+        state = init_state.from_params(clone(p0))
+        rest = state["layout"].rest if "layout" in state else 0
+        per_step = want or dp_launches(mode, n, c.n_layers, rest)
+        losses = []
+        for i in range(steps):
+            before = counts()
+            state, loss = step(state, toks)
+            got = [a - b for a, b in zip(counts(), before)][:len(per_step)]
+            check(got == per_step,
+                  f"{mode} step {i}: kernels {names[:len(per_step)]} "
+                  f"launched {got} times, want {per_step} (counted from "
+                  f"the code)")
+            losses.append(float(loss))
+        check(all(np.isfinite(losses)), f"{mode}: non-finite loss {losses}")
+        return step, state, losses
+
+    def leaves(state):
+        return [x.detach() for x in tree_leaves(full_params(state))]
+
+    p0 = leaves({"params": params0})
+
+    def rel_gap(got, ref):
+        """||got - ref|| / ||ref - p_0|| over every leaf."""
+        num = sum(float(((a.double() - b.double()) ** 2).sum())
+                  for a, b in zip(got, ref))
+        den = sum(float(((b.double() - c.double()) ** 2).sum())
+                  for b, c in zip(ref, p0))
+        return (num / den) ** 0.5
+
+    steps, states, losses = {}, {}, {}
+    steps["one"], states["one"], losses["one"] = run("one")
+    # ---- the main path: (b)-(d) and the composition step, counted alone
+    for w in wrappers.values():
+        w.launches = 0
+    for mode in ("dp", "zero1", "fsdp"):
+        steps[mode], states[mode], losses[mode] = run(mode)
+
+    ccfg = flagship_train_config(COMPOSE["layers"], COMPOSE["seq"],
+                                 attention_impl="zigzag_flash")
+    cmesh = make_mesh_nd(8, devices=[dev] * 8)
+    cdp = cmesh.shape["dp"]
+    check(tuple(cmesh.shape.values()) == (2, 2, 2),
+          f"composition mesh {cmesh.shape}")
+    ctoks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, ccfg.vocab, (COMPOSE["batch"], COMPOSE["seq"] + 1))).to(dev)
+    cp0 = init_params(ccfg, torch.Generator().manual_seed(1), dev)
+    ring_k = ring_launches("zigzag_flash", cmesh.shape["sp"],
+                           COMPOSE["layers"], False)
+    comp = {}
+    for mode in ("dp", "fsdp"):
+        k5 = cdp * (1 + COMPOSE["layers"]) if mode == "fsdp" else 0
+        want = [cdp * k for k in ring_k[:3]] + [k5, 1, cdp * ring_k[3]]
+        _, cstate, closs = run(mode, ccfg, cmesh, cp0, ctoks,
+                               COMPOSE["steps"], want)
+        check(cstate["layout"].rest == 0,
+              f"composition {mode}: replicated leaves at dp {cdp}")
+        comp[mode] = (closs, leaves(cstate))
+        del cstate
+    sharded = dict(zip(names, counts()))
+    check(comp["fsdp"][0] == comp["dp"][0] and all(
+        bits_equal(a, b) for a, b in zip(comp["fsdp"][1], comp["dp"][1])),
+        f"composition: fsdp losses {comp['fsdp'][0]} or parameters differ "
+        f"from plain dp's {comp['dp'][0]} in their bits")
+    print(f"composition (dp 2, sp 2, tp 2; zigzag_flash, "
+          f"{COMPOSE['layers']} layers, seq {COMPOSE['seq']}, batch "
+          f"{COMPOSE['batch']}): plain dp losses {comp['dp'][0]}, fsdp "
+          f"{comp['fsdp'][0]}, the same bits, parameters too; launches per "
+          f"step of kernels 1-3, 5, 6, 7 as counted from the code "
+          f"(kernels 1-3 {ring_k[0] * cdp}, kernel 7 {ring_k[3] * cdp})")
+    del comp, cp0
+    torch.cuda.empty_cache()
+
+    # ---- (e) the faulty control ------------------------------------------
+    def rank_zero(contribs, ring, op="sum"):
+        return contribs[:1].expand_as(contribs) * ring.size
+
+    tmod.ring_allreduce = rank_zero
+    try:
+        _, cstate, losses["control"] = run("control")
+    finally:
+        tmod.ring_allreduce = ring_allreduce
+    ctrl = leaves(cstate)
+    del cstate
+    torch.cuda.empty_cache()
+
+    # ---- agreement ---------------------------------------------------------
+    full = {mode: leaves(states[mode]) for mode in ("one", "dp", "zero1",
+                                                    "fsdp")}
+    loss_gap = {mode: [abs(a - b) / abs(b) for a, b in
+                       zip(losses[mode], losses["one"])]
+                for mode in ("dp", "control")}
+    ctrl_gap = [abs(a - b) / abs(b) for a, b in zip(losses["control"],
+                                                    losses["dp"])]
+    param_gap = rel_gap(full["dp"], full["one"])
+    ctrl_param_gap = rel_gap(ctrl, full["dp"])
+    print(f"data-parallel flagship, {n} dp ranks on the card ({DP_STEPS} "
+          f"steps, batch 8, seq {cfg.max_seq - 1}): losses (a) one device "
+          f"{losses['one']}, (b) dp {losses['dp']}, (c) zero1 "
+          f"{losses['zero1']}, (d) fsdp {losses['fsdp']}, (e) control "
+          f"{losses['control']}")
+    print(f"relative loss gaps to (a): (b) {loss_gap['dp']}, (e) "
+          f"{loss_gap['control']}; (e) to (b): {ctrl_gap} (rtol "
+          f"{DP_LOSS_RTOL}); parameter gap ||p - p_ref|| / ||p_ref - p_0||: "
+          f"(b) to (a) {param_gap!r}, (e) to (b) {ctrl_param_gap!r} "
+          f"(limit {DP_PARAM_REL})")
+    rest = states["dp"]["layout"].rest
+    check(rest == 0, f"{rest} replicated values at dp {n}: the flagship's "
+                     f"every leaf should divide by {n}")
+    for mode in ("zero1", "fsdp"):
+        check(losses[mode] == losses["dp"] and all(
+            bits_equal(a, b) for a, b in zip(full[mode], full["dp"])),
+            f"{mode}: losses {losses[mode]} or parameters differ from plain "
+            f"dp's {losses['dp']} in their bits")
+    check(max(loss_gap["dp"]) <= DP_LOSS_RTOL,
+          f"plain dp losses {losses['dp']} against one device's "
+          f"{losses['one']}: gaps {loss_gap['dp']} (rtol {DP_LOSS_RTOL})")
+    check(param_gap <= DP_PARAM_REL,
+          f"plain dp parameters {param_gap} from one device's (limit "
+          f"{DP_PARAM_REL})")
+    check(losses["control"][0] == losses["dp"][0],
+          f"control's first loss {losses['control'][0]} (before any update) "
+          f"differs from plain dp's {losses['dp'][0]}")
+    check(ctrl_gap[1] > DP_LOSS_RTOL,
+          f"control (rank 0's gradient alone) within {ctrl_gap[1]} of plain "
+          f"dp's step-2 loss, inside the rtol {DP_LOSS_RTOL}")
+    check(ctrl_param_gap > DP_PARAM_REL,
+          f"control's parameters within {ctrl_param_gap} of plain dp's, "
+          f"inside the limit {DP_PARAM_REL}")
+    for mode in ("dp", "zero1", "fsdp"):
+        check(losses[mode][-1] < losses[mode][0],
+              f"{mode} loss did not fall: {losses[mode]}")
+    del ctrl, full
+
+    # ---- memory per rank -------------------------------------------------
+    def nbytes(tree):
+        return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+    held = {mode: [rank_state(states[mode], r) for r in range(n)]
+            for mode in ("dp", "zero1", "fsdp")}
+    moments = {mode: [nbytes(h["exp_avg"]) + nbytes(h["exp_avg_sq"])
+                      for h in held[mode]] for mode in held}
+    param_bytes = {mode: [nbytes(h["params"]) for h in held[mode]]
+                   for mode in held}
+    for r in range(n):
+        check(moments["zero1"][r] * n == moments["dp"][r],
+              f"zero1 rank {r} holds {moments['zero1'][r]} moment bytes, "
+              f"plain dp {moments['dp'][r]}")
+        check(param_bytes["fsdp"][r] * n == param_bytes["dp"][r],
+              f"fsdp rank {r} holds {param_bytes['fsdp'][r]} parameter "
+              f"bytes, plain dp {param_bytes['dp'][r]}")
+    print(f"bytes per rank between steps (no replicated leaf): moments "
+          f"plain dp {moments['dp'][0]}, zero1 {moments['zero1']}, fsdp "
+          f"{moments['fsdp'][0]}; parameters plain dp "
+          f"{param_bytes['dp'][0]}, zero1 {param_bytes['zero1'][0]}, fsdp "
+          f"{param_bytes['fsdp']}")
+    del held
+
+    # ---- fsdp under remat: each block gathered again in the backward ----
+    # DP_STEPS steps, so the gradient through the second gather (the
+    # backward's replay) moves the parameters that the later losses see.
+    remat_k = dp_launches("fsdp", n, layers, 0, remat=True)
+    _, rstate, rlosses = run("fsdp", flagship_train_config(remat=True),
+                             want=remat_k)
+    rfull, ffull = leaves(rstate), leaves(states["fsdp"])
+    del rstate
+    remat_gap = [abs(a - b) / abs(b) for a, b in zip(rlosses,
+                                                     losses["fsdp"])]
+    remat_param_gap = rel_gap(rfull, ffull)
+    remat_bits = rlosses == losses["fsdp"] and all(
+        bits_equal(a, b) for a, b in zip(rfull, ffull))
+    print(f"fsdp with remat, {DP_STEPS} steps: losses {rlosses} (without "
+          f"{losses['fsdp']}), relative gaps {remat_gap}, parameter gap "
+          f"{remat_param_gap!r}, bitwise equal: {remat_bits}; kernel 1 and "
+          f"kernel 5 launches per step {remat_k[0]}, {remat_k[3]}")
+    # The replay runs the same kernels on the same gathered bits, so the
+    # design gives fsdp's losses and parameters bit for bit (measured so on
+    # NVIDIA H100 80GB HBM3, 700 W); a gradient lost or doubled in the
+    # second gather would move the parameters as the control does.
+    check(remat_bits,
+          f"fsdp remat losses {rlosses} or parameters (gap "
+          f"{remat_param_gap}) differ from fsdp's without remat "
+          f"{losses['fsdp']} in their bits")
+    del rfull, ffull
+    torch.cuda.empty_cache()
+
+    # ---- kernels 5 and 6 against plain at this phase's shapes -----------
+    ring = axis_ring(mesh, "dp")
+    layout = states["dp"]["layout"]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    errs = {"ring_allreduce": 0.0, "ring_allgather": 0.0}
+    bucket = torch.randn(n, layout.width, generator=gen, device=dev)
+    want = ring_allreduce_plain(bucket)
+    for label, got, ref in (
+            ("all-reduce", ring_allreduce(bucket, ring), want),
+            ("reduce-scatter", ring_reduce_scatter(bucket, ring),
+             want.reshape(n, n, -1)[torch.arange(n), torch.arange(n)])):
+        torch.cuda.synchronize()
+        check(bits_equal(got, ref), f"kernel 6 {label} of the ({n}, "
+                                    f"{layout.width}) bucket differs from "
+                                    f"its plain version")
+        errs["ring_allreduce"] = max(errs["ring_allreduce"],
+                                     max_abs_diff(got, ref))
+        del got, ref
+    del want
+    shards = [("zero1's parameters", states["zero1"]["buffers"][0]),
+              ("fsdp's top group", states["fsdp"]["buffers"][0]),
+              ("fsdp's block 0", states["fsdp"]["buffers"][1])]
+    for label, buf in shards:
+        x = buf.reshape(-1)
+        got, ref = ring_allgather(x, ring), ring_allgather_plain(x, n)
+        torch.cuda.synchronize()
+        check(bits_equal(got, ref), f"kernel 5 on {label} "
+                                    f"{tuple(buf.shape)} differs from its "
+                                    f"plain version")
+        errs["ring_allgather"] = max(errs["ring_allgather"],
+                                     max_abs_diff(got, ref))
+        del got, ref
+    # Least bytes: every rank's bucket row read once; the reduce-scatter
+    # writes each rank's chunk once, the all-reduce every rank's copy.
+    width_bytes = layout.width * bucket.element_size()
+    rs_ms = kernel_ms(lambda b: ring_reduce_scatter(b, ring), [(bucket,)], 5)
+    ar_ms = kernel_ms(lambda b: ring_allreduce(b, ring), [(bucket,)], 5)
+    rs_bound = bound((n + 1) * width_bytes, (n - 1) * layout.width,
+                     torch.float32)[0]
+    ar_bound = bound(2 * n * width_bytes, (n - 1) * layout.width,
+                     torch.float32)[0]
+    gather_ms = {label: kernel_ms(lambda x: ring_allgather(x, ring),
+                                  [(buf.reshape(-1),)], 10)
+                 for label, buf in shards}
+    print(f"kernels 5-6 at this phase's shapes, bitwise equal to plain "
+          f"(max |err| {errs}); ({n}, {layout.width}) float32 bucket: "
+          f"ring_reduce_scatter (kernel 6, then rank r's chunk) "
+          f"{rs_ms * 1e3!r} us against the {rs_bound * 1e3!r} us bound of "
+          f"writing the kept chunks alone; ring_allreduce {ar_ms * 1e3!r} "
+          f"us (bound {ar_bound * 1e3!r}); ring_allgather "
+          f"{ {k: v * 1e3 for k, v in gather_ms.items()} } us  [{card}]")
+    del bucket
+    torch.cuda.empty_cache()
+
+    # ---- times ------------------------------------------------------------
+    for mode in ("one", "dp", "zero1", "fsdp"):
+        step, state = steps[mode], states[mode]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        host = time.perf_counter()
+        for _ in range(DP_TIMED_STEPS):
+            step(state, tokens)
+        host = (time.perf_counter() - host) * 1e3 / DP_TIMED_STEPS
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / DP_TIMED_STEPS
+        label = {"one": "(a) one device", "dp": "(b) plain dp",
+                 "zero1": "(c) zero1", "fsdp": "(d) fsdp"}[mode]
+        print(f"{label}: {ms!r} ms per step (CUDA events over "
+              f"{DP_TIMED_STEPS} steps after {DP_STEPS}), host enqueue "
+              f"{host!r} ms per step  [{card}]")
+        prof = profile_steps(lambda: step(state, tokens), 1, label, ms,
+                             card)
+        if prof is not None:
+            g = prof["groups"]
+            print(f"{label}: kernel 5 {g.get('all-gather kernel 5', (0, 0))}"
+                  f", kernel 6 {g.get('all-reduce kernel 6', (0, 0))} (ms, "
+                  f"launches) a step; device busy share {prof['busy']!r}; "
+                  f"{prof['launches']!r} launches a step  [{card}]")
+        del state
+        states[mode] = None
+        torch.cuda.empty_cache()
+    print(f"data-parallel phase launches (main path: (b)-(d), {DP_STEPS} "
+          f"steps each, and the composition step): {sharded}")
+    return sharded, errs
+
+
 def decode_times(dev, gen, card, cfg):
     """Kernel 4 at the flagship decode shape (n_valid 0, 128 and 255) and
     at a long cache of the same widths (t 8192, n_valid 8191): kernel,
@@ -1780,7 +2197,11 @@ def main() -> int:
     long_launches, _ = long_context_slice(dev, gen, card)
     torch.cuda.empty_cache()
 
-    # ---- 9. result ------------------------------------------------------
+    # ---- 9. data-parallel training: dp ranks on the card -----------------
+    sharded_launches, dp_err = dp_slice(dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- 10. result -----------------------------------------------------
     source = "mpi_tpu_torch/ops/csrc/flash_attention.cu"
     kernels = []
     for name, replaces, n in zip(
@@ -1809,13 +2230,15 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": driver_launches[name],
-                        "max_abs_err": max(ring_err[name], slice_err[name]),
+                        "max_abs_err": max(ring_err[name], slice_err[name],
+                                           dp_err.get(name, 0.0)),
                         **ring_rows[name]})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{**{key: row[key] for key in keys},
                 **({"long_context_launches": long_launches[row["name"]]}
-                   if row["name"] in long_launches else {})}
+                   if row["name"] in long_launches else {}),
+                "sharded_launches": sharded_launches.get(row["name"], 0)}
                for row in kernels]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,17 +1,20 @@
 """The flagship decoder LM: config, parameters, forward, the next-token
 loss and one AdamW training step on one device (its attention sequence
-parallel over a rank mesh's ``sp`` axis), KV-cache generation, int8
+parallel over a rank mesh's ``sp`` axis, its batch data-parallel over the
+``dp`` axis, with ZeRO-1 or FSDP as options), KV-cache generation, int8
 weights, and loading the JAX package's tree."""
 
 from .convert import params_from_jax
 from .generate import decode_step, generate, prefill
 from .quant import QTensor, dequantize, quantize, quantize_params
 from .transformer import (TransformerConfig, forward, forward_with_aux,
-                          init_params, loss_fn, make_mesh_nd, make_optimizer,
-                          make_train_parts, make_train_step, token_xent)
+                          full_params, init_params, loss_fn, make_mesh_nd,
+                          make_optimizer, make_train_parts, make_train_step,
+                          param_specs, rank_state, token_xent)
 
 __all__ = ["TransformerConfig", "init_params", "forward", "forward_with_aux",
            "token_xent", "loss_fn", "make_optimizer", "make_train_parts",
-           "make_train_step", "make_mesh_nd", "prefill", "decode_step", "generate",
+           "make_train_step", "full_params", "rank_state", "param_specs",
+           "make_mesh_nd", "prefill", "decode_step", "generate",
            "QTensor", "quantize", "dequantize", "quantize_params",
            "params_from_jax"]

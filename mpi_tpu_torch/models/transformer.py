@@ -11,18 +11,27 @@ PyTorch, and the long-context impls (ring, zigzag and Ulysses, fold or
 flash chunks) over the ``sp`` axis of a :class:`RankMesh`
 (:mod:`..parallel.ring_attention`, :mod:`..parallel.ulysses`).
 
-**The mesh.** The ranks of a :class:`RankMesh` share one device. The
-sequence-parallel impls communicate over its ``sp`` axis alone (kernel 7
-for the ring's hops); the ranks of its ``dp`` and ``tp`` axes are the
-batch and head dimensions of the same launches, the arithmetic the JAX
-``shard_map`` does with those axes. Every tensor stays whole on the
-device, so this slice makes no explicit dp gradient reduction and no tp
-reduction: the loss is the global batch's mean and its gradient is the
-dp-reduced one by construction. Those reductions on kernels 5-6, with
-``param_specs``, ``zero1`` and ``fsdp``, come with the sharded-training
-slice. A mesh over several distinct devices raises
-``NotImplementedError``. The other optimizers and schedules and the
-Mixture-of-Experts FFN belong to later slices too.
+**The mesh.** The ranks of a :class:`RankMesh` share one device, row-major
+over its axes (``("dp", "sp", "tp")`` from :func:`make_mesh_nd`). The
+sequence-parallel impls communicate over its ``sp`` axis (kernel 7 for the
+ring's hops). A training step over a mesh whose ``dp`` axis is above 1 is
+data-parallel: dp rank r computes the loss of its own rows of the batch,
+``tokens[r·b/dp:(r+1)·b/dp]`` (the JAX package's ``P('dp', 'sp')`` split),
+over its own (sp, tp) sub-mesh, and its gradient becomes row r of a
+``(dp, m)`` float32 bucket. Kernel 6 then reduces the bucket over the dp
+ring (:func:`~mpi_tpu_torch.parallel.mesh.axis_ring`) and AdamW updates
+the parameters; with ``zero1`` the reduction is a reduce-scatter, each
+rank updates its shard with its shard of the moments, and kernel 5 gathers
+the parameters; with ``fsdp`` the parameters live as shards between steps
+and kernel 5 gathers each block's weights just before the block runs
+(:mod:`..parallel.zero` holds the layouts). The returned loss is the mean
+of the ranks' losses. The ``tp`` ranks stay the head dimension of the same
+launches: ``tp`` only changes which dimension ``dp`` claims (``wo (h, hd,
+d)`` gets ``dp`` on dimension 1 under ``tp``, on dimension 0 without), and
+no explicit tp reduction runs. The explicit tp reductions and the other
+optimizers and schedules come next; a mesh over several distinct devices
+raises ``NotImplementedError`` (the NVLink peer path of kernels 5-7); the
+Mixture-of-Experts FFN belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -37,15 +46,21 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import (blockwise_attention, dense_attention,
                              flash_attention)
-from ..parallel.mesh import RankMesh, mesh_devices
+from ..ops.ring_collectives import ring_allgather, ring_allreduce
+from ..parallel.collectives import ring_reduce_scatter
+from ..parallel.mesh import RankMesh, axis_ring, axis_slice, mesh_devices
 from ..parallel.ring_attention import ring_attention_sharded
+from ..parallel.zero import (DpLayout, fsdp_specs, pieces_view, spec_dim,
+                             spec_leaves, tree_leaves, tree_with_leaves,
+                             unshard, zero1_specs)
 from ..parallel.ulysses import ulysses_attention_sharded
 from ..utils.platform import resolve_device
 
-__all__ = ["TransformerConfig", "init_params", "forward", "forward_with_aux",
-           "apply_rope", "block_body", "token_xent", "loss_fn",
-           "make_optimizer", "make_train_parts", "make_train_step",
-           "make_mesh_nd"]
+__all__ = ["TransformerConfig", "init_params", "param_specs", "sanitize_spec",
+           "sane_param_specs", "forward", "forward_with_aux", "apply_rope",
+           "block_body", "token_xent", "loss_fn", "make_optimizer",
+           "make_train_parts", "make_train_step", "full_params",
+           "rank_state", "make_mesh_nd"]
 
 # The sequence-parallel attention impls: they run over a mesh's sp axis.
 _SP_IMPLS = ("ring", "ring_flash", "zigzag", "zigzag_flash", "ulysses",
@@ -152,6 +167,62 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     return params
 
 
+def param_specs(cfg: TransformerConfig) -> Dict[str, Any]:
+    """The spec of every leaf of :func:`init_params`'s tree, as the JAX
+    package gives them, each a plain tuple with one entry per dimension (a
+    mesh axis or None; ``()`` is replicated). The Megatron-style tp split:
+    q, k and v column-parallel over heads, wo row-parallel, w1 column- and
+    w2 row-parallel over d_ff, the embedding vocab-sharded; norms and the
+    position table replicated. With experts the block holds the JAX tree's
+    MoE entries (experts over ``ep``), though MoE itself is not ported."""
+    blk: Dict[str, Any] = {
+        "ln1": {"scale": (), "bias": ()},
+        "ln2": {"scale": (), "bias": ()},
+        "wq": (None, "tp", None),
+        "wk": (None, "tp", None),
+        "wv": (None, "tp", None),
+        "wo": ("tp", None, None),
+    }
+    if cfg.n_experts > 0:
+        blk["moe"] = {"router": (), "w1e": ("ep", None, "tp"),
+                      "w2e": ("ep", "tp", None)}
+    else:
+        blk["w1"] = (None, "tp")
+        blk["w2"] = ("tp", None)
+    specs: Dict[str, Any] = {
+        "embed": ("tp", None),
+        "final_ln": {"scale": (), "bias": ()},
+        "blocks": [dict(blk) for _ in range(cfg.n_layers)],
+    }
+    if not cfg.rope:
+        specs["pos"] = ()
+    return specs
+
+
+def sanitize_spec(spec: Tuple[Any, ...],
+                  mesh: Optional[RankMesh]) -> Tuple[Any, ...]:
+    """``spec`` with the axis names ``mesh`` lacks dropped (replicated
+    there), so one set of specs fits any mesh shape."""
+    if mesh is None:
+        return tuple(spec)
+    return tuple(p if p in mesh.axis_names else None for p in spec)
+
+
+def sane_param_specs(cfg: TransformerConfig, params: Any,
+                     mesh: Optional[RankMesh]) -> Any:
+    """:func:`param_specs` laid out as ``params``'s tree, matched by key
+    (a tree in any key order fits), every spec sanitized against
+    ``mesh``."""
+    def walk(node, spec):
+        if isinstance(node, dict):
+            return {key: walk(value, spec[key]) for key, value in node.items()}
+        if isinstance(node, list):
+            return [walk(value, sub) for value, sub in zip(node, spec)]
+        return sanitize_spec(spec, mesh)
+
+    return walk(params, param_specs(cfg))
+
+
 # --------------------------------------------------------------------------
 # Forward
 # --------------------------------------------------------------------------
@@ -252,7 +323,12 @@ def _ffn(x, blk, cfg: TransformerConfig):
 
 def block_body(x, blk, cfg: TransformerConfig,
                mesh: Optional[RankMesh] = None):
-    """One pre-norm transformer block (attention and FFN residuals)."""
+    """One pre-norm transformer block (attention and FFN residuals).
+    ``blk`` is the block's tree, or a callable that returns it: an FSDP
+    step's block, whose weights are gathered here, and again when remat
+    recomputes the block in the backward."""
+    if callable(blk):
+        blk = blk()
     h = _layernorm(x, blk["ln1"]["scale"].to(x.dtype),
                    blk["ln1"]["bias"].to(x.dtype))
     x = x + _attention(h, blk, cfg, mesh)
@@ -321,7 +397,6 @@ def loss_fn(params: Dict[str, Any], tokens: torch.Tensor,
 
 # What a later slice of the port brings, for each option it refuses now.
 _OPTIMIZER_SLICE = "the optimizer slice (optax's rules, ported)"
-_SHARDED_SLICE = "the sharded-training slice"
 
 
 def check_mesh(mesh: Any, cfg: TransformerConfig) -> None:
@@ -338,8 +413,8 @@ def check_mesh(mesh: Any, cfg: TransformerConfig) -> None:
     if len(distinct) > 1:
         raise NotImplementedError(
             f"mpi_tpu_torch: a mesh over several devices {distinct} is not "
-            f"ported yet: its ranks must share one device; sharded training "
-            f"over devices comes with {_SHARDED_SLICE}")
+            f"ported yet: its ranks must share one device (the NVLink peer "
+            f"path of kernels 5-7 is queued in ROADMAP.md)")
     tp = mesh.shape.get("tp", 1)
     if cfg.n_heads % tp or cfg.kv_heads % tp:
         raise ValueError(
@@ -377,12 +452,292 @@ def make_optimizer(optimizer: str = "adamw", learning_rate: float = 1e-3,
     return build
 
 
-def _leaves(tree: Any) -> List[torch.Tensor]:
-    if isinstance(tree, dict):
-        return [x for key in tree for x in _leaves(tree[key])]
-    if isinstance(tree, (list, tuple)):
-        return [x for node in tree for x in _leaves(node)]
-    return [tree]
+def _groups(params: Dict[str, Any]) -> List[Any]:
+    """A data-parallel step's gather groups: the leaves outside the blocks
+    (embedding, position table, final norm), then each block."""
+    return [{k: v for k, v in params.items() if k != "blocks"},
+            *params["blocks"]]
+
+
+def _regroup(params: Dict[str, Any], leaves) -> Dict[str, Any]:
+    """A tree of ``params``'s structure and key order holding ``leaves``
+    in :func:`_groups`' order."""
+    it = iter(leaves)
+    groups = [tree_with_leaves(g, it) for g in _groups(params)]
+    return {k: groups[1:] if k == "blocks" else groups[0][k]
+            for k in params}
+
+
+class _GatherGroup(torch.autograd.Function):
+    """Dp rank ``rank``'s full tensors of group ``g``'s sharded leaves,
+    gathered from the group's ``(dp, S_g)`` buffer of pieces by one
+    kernel-5 launch over the dp ring (it writes every rank's copy; this
+    rank's is read). Nothing is saved but the layout: the backward lays the
+    tensors' gradients out as the buffer's, a copy with no communication;
+    the ranks' gradients meet in the step's reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, buf, layout, g, rank, ring):
+        ctx.layout, ctx.g = layout, g
+        start = layout.spans[g][0]
+        mine = ring_allgather(buf.reshape(-1), ring)[rank].view(buf.shape)
+        return tuple(layout.full(mine, i, start)
+                     for i in layout.group_leaves(g, sharded=True))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        layout, g = ctx.layout, ctx.g
+        start, stop = layout.spans[g]
+        out = grads[0].new_empty((layout.n, stop - start))
+        for i, grad in zip(layout.group_leaves(g, sharded=True), grads):
+            layout.pieces(out, i, start).copy_(
+                pieces_view(grad, layout.leaves[i].dim, layout.n))
+        return out, None, None, None, None
+
+
+def _span(state: Dict[str, Any], i: int) -> Tuple[int, int]:
+    """The buffer of a zero1 or fsdp state that holds sharded leaf ``i``,
+    and the chunk column the buffer starts at."""
+    off = state["layout"].leaves[i].offset
+    return next((g, start) for g, (start, stop) in enumerate(state["spans"])
+                if start <= off < stop)
+
+
+class _DataParallel:
+    """:func:`make_train_parts` over a mesh whose ``dp`` axis is above 1
+    (see the module note). ``mode`` is ``"dp"`` (parameters and moments
+    replicated), ``"zero1"`` or ``"fsdp"``.
+
+    Every mode packs the ranks' gradients into the same bucket layout
+    (:class:`~mpi_tpu_torch.parallel.zero.DpLayout`, ``fsdp_specs``'
+    dimensions for dp and fsdp, ``zero1_specs``' for zero1), so kernel 6
+    folds each value in the same ring order whichever reduction runs, and
+    AdamW is elementwise: where the modes' dimensions agree and every leaf
+    is sharded, they give the same bits. (Plain dp reduces replicated
+    leaves in the same launch as the shards, the others in a launch of
+    their own, which moves the chunks' edges and so the fold orders.)"""
+
+    def __init__(self, cfg, mesh, build, grad_accum, mode):
+        self.cfg, self.mesh, self.build = cfg, mesh, build
+        self.grad_accum, self.mode = grad_accum, mode
+        self.dp = mesh.shape["dp"]
+        # One dp ring stands for every (sp, tp) position's: the ranks share
+        # one device, and every position's ring reduces the same values.
+        self.ring = axis_ring(mesh, "dp")
+        subs = [axis_slice(mesh, "dp", r) for r in range(self.dp)]
+        self.rank_meshes = [m if m.axis_names else None for m in subs]
+
+    def layout(self, params):
+        specs = sane_param_specs(self.cfg, params, self.mesh)
+        if self.mode == "zero1":  # the moments' specs, matched by shape
+            specs = zero1_specs(params, specs, params, self.mesh)
+        else:
+            specs = fsdp_specs(params, specs, self.mesh)
+        return DpLayout([[(x.shape, spec_dim(s)) for x, s in
+                          zip(tree_leaves(g), spec_leaves(sg))]
+                         for g, sg in zip(_groups(params), _groups(specs))],
+                        self.dp)
+
+    def from_params(self, params):
+        leaves = [x for g in _groups(params) for x in tree_leaves(g)]
+        for x in leaves:
+            if not x.is_floating_point():
+                raise TypeError(f"mpi_tpu_torch: cannot train a "
+                                f"{x.dtype} parameter")
+        layout = self.layout(params)
+        state = {"params": params, "layout": layout, "mode": self.mode}
+        if self.mode == "dp":
+            for x in leaves:
+                x.requires_grad_(True)
+            state["opt"] = self.build(leaves)
+            return state
+        rest = [x for x, leaf in zip(leaves, layout.leaves)
+                if leaf.dim is None]
+        for x in leaves if self.mode == "zero1" else rest:
+            x.requires_grad_(True)  # zero1's forward reads the full leaves
+        # zero1: one (dp, chunk) buffer of every rank's shards; fsdp: one
+        # (dp, S_g) buffer a group, each group gathered on its own.
+        spans = (layout.spans if self.mode == "fsdp"
+                 else [(0, layout.chunk)])
+        bufs = [torch.empty((self.dp, stop - start), dtype=leaves[0].dtype,
+                            device=leaves[0].device) for start, stop in spans]
+        state.update(spans=spans, buffers=bufs)
+        self._fill(state, leaves)
+        if self.mode == "fsdp":  # the parameters are the pieces alone now
+            state["params"] = _regroup(params, [
+                x if leaf.dim is None else self._pieces(state, i)
+                for i, (x, leaf) in enumerate(zip(leaves, layout.leaves))])
+        state["shards"] = [[buf[r] for buf in bufs] for r in range(self.dp)]
+        state["opt"] = self.build([s for row in state["shards"] for s in row]
+                                  + rest)
+        return state
+
+    def _pieces(self, state, i):
+        g, start = _span(state, i)
+        return state["layout"].pieces(state["buffers"][g], i, start)
+
+    def _fill(self, state, leaves):
+        """Each rank's pieces of the full ``leaves`` into the buffers."""
+        layout = state["layout"]
+        for i, x in enumerate(leaves):
+            dim = layout.leaves[i].dim
+            if dim is not None and x.numel():
+                self._pieces(state, i).copy_(pieces_view(x.detach(), dim,
+                                                         self.dp))
+
+    def _rank_params(self, state, inputs, r):
+        """Rank r's tree for an fsdp step: the top group gathered now,
+        each block gathered when :func:`block_body` runs it."""
+        layout = state["layout"]
+        n_groups = len(layout.spans)
+        rest = iter(inputs[n_groups:])
+        by_leaf = {i: next(rest) for i, leaf in enumerate(layout.leaves)
+                   if leaf.dim is None}
+        templates = _groups(state["params"])
+
+        def group_tree(g):
+            own = layout.group_leaves(g)
+            sharded = layout.group_leaves(g, sharded=True)
+            full = dict(zip(sharded, _GatherGroup.apply(
+                inputs[g], layout, g, r, self.ring))) if sharded else {}
+            return tree_with_leaves(templates[g],
+                                    iter([full.get(i, by_leaf.get(i))
+                                          for i in own]))
+
+        blocks = [lambda g=g: group_tree(g) for g in range(1, n_groups)]
+        top = group_tree(0)
+        return {k: blocks if k == "blocks" else top[k]
+                for k in state["params"]}
+
+    def step(self, state, tokens):
+        layout, opt, dp, k = state["layout"], state["opt"], self.dp, \
+            self.grad_accum
+        b = tokens.shape[0]
+        if b % (dp * k):
+            raise ValueError(f"mpi_tpu_torch: batch {b} not divisible by "
+                             f"dp={dp} x grad_accum={k}")
+        rows = b // dp
+        params = state["params"]
+        leaves = [x for g in _groups(params) for x in tree_leaves(g)]
+        dev = leaves[0].device
+        tokens = tokens.to(dev)
+        opt.zero_grad(set_to_none=True)
+        fsdp = self.mode == "fsdp"
+        if fsdp:  # the buffers' gradients, then the replicated leaves'
+            inputs = [buf.detach().requires_grad_(True)
+                      for buf in state["buffers"]]
+            inputs += [x for x, leaf in zip(leaves, layout.leaves)
+                       if leaf.dim is None]
+        else:
+            inputs = leaves
+        bucket = torch.empty((dp, layout.width), dtype=torch.float32,
+                             device=dev)
+        bucket[:, dp * layout.chunk + layout.rest:].zero_()
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
+        for r in range(dp):  # rank r's gradient from its own rows alone
+            for j, micro in enumerate(
+                    tokens[r * rows:(r + 1) * rows].chunk(k)):
+                rank_params = (self._rank_params(state, inputs, r) if fsdp
+                               else params)
+                micro_loss = loss_fn(rank_params, micro, self.cfg,
+                                     self.rank_meshes[r]) / k
+                grads = torch.autograd.grad(micro_loss, inputs,
+                                            allow_unused=True,
+                                            materialize_grads=True)
+                self._pack(state, bucket[r], grads, add=j > 0)
+                loss += micro_loss.detach()
+        self._update(state, leaves, bucket)
+        return state, loss / dp
+
+    def _pack(self, state, row, grads, add):
+        layout = state["layout"]
+        if self.mode != "fsdp":
+            layout.pack(row, grads, add)
+            return
+        chunks = layout.chunks(row)
+        dsts = [chunks[:, start:stop] for start, stop in layout.spans]
+        dsts += [layout.tail(row, i) for i, leaf in enumerate(layout.leaves)
+                 if leaf.dim is None]
+        for dst, grad in zip(dsts, grads):
+            if add:
+                dst.add_(grad)
+            else:
+                dst.copy_(grad)
+
+    def _update(self, state, leaves, bucket):
+        """Reduce the bucket over the dp ring (kernel 6) and update."""
+        layout, opt, dp = state["layout"], state["opt"], self.dp
+        if self.mode == "dp":
+            # Every rank's copy holds the same sum; the replicated
+            # parameters take one update, from rank 0's.
+            total = ring_allreduce(bucket, self.ring)[0].div_(dp)
+            for i, x in enumerate(leaves):
+                x.grad = layout.unpack(total, i)
+            opt.step()
+            return
+        nc = dp * layout.chunk
+        sharded = bucket if layout.width == nc else \
+            bucket[:, :nc].contiguous()
+        mine = ring_reduce_scatter(sharded, self.ring).div_(dp)
+        if layout.width > nc:  # leaves with no divisible dimension
+            rest = ring_allreduce(bucket[:, nc:].contiguous(),
+                                  self.ring)[0].div_(dp)
+            for i, x in enumerate(leaves):
+                if layout.leaves[i].dim is None:
+                    x.grad = layout.unpack(rest, i)
+        for r, row in enumerate(state["shards"]):
+            for s, (start, stop) in zip(row, state["spans"]):
+                s.grad = mine[r, start:stop]
+        opt.step()
+        if self.mode == "zero1":
+            gathered = ring_allgather(state["buffers"][0].reshape(-1),
+                                      self.ring)
+            with torch.no_grad():  # rank 0's copy; every rank's is the same
+                for i, x in enumerate(leaves):
+                    if layout.leaves[i].dim is not None:
+                        layout.unpack(gathered[0], i, out=x)
+
+
+def full_params(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The full parameter tree of a training state: ``state["params"]``,
+    unless ``fsdp`` holds it as pieces, which are then put back together
+    (plain PyTorch copies, no kernel launch)."""
+    if state.get("mode") != "fsdp":
+        return state["params"]
+    params, layout = state["params"], state["layout"]
+    leaves = [x for g in _groups(params) for x in tree_leaves(g)]
+    return _regroup(params, [
+        x if leaf.dim is None else unshard(x, leaf.dim).detach()
+        for x, leaf in zip(leaves, layout.leaves)])
+
+
+def rank_state(state: Dict[str, Any], rank: int) -> Dict[str, Any]:
+    """What dp rank ``rank`` holds of a training state: ``{"params",
+    "exp_avg", "exp_avg_sq"}``, each a tree of the parameter tree's
+    layout whose leaves are views of the state's tensors: the full tensor
+    where the rank holds a leaf whole, the rank's piece where it holds a
+    shard. The moments exist from the first step on."""
+    params, opt = state["params"], state["opt"]
+    layout = state.get("layout")
+    leaves = [x for g in _groups(params) for x in tree_leaves(g)]
+
+    def held(x, i, what):
+        dim = layout.leaves[i].dim
+        if dim is None or state["mode"] == "dp":
+            return x if what == "params" else opt.state[x][what]
+        if what == "params":
+            return x[rank] if state["mode"] == "fsdp" else x
+        g, start = _span(state, i)
+        moment = opt.state[state["shards"][rank][g]][what]
+        return layout.pieces(moment.view(1, -1), i, start)[0]
+
+    if layout is None:  # one device: every rank would hold it all
+        return {what: (params if what == "params" else tree_with_leaves(
+            params, iter([opt.state[x][what] for x in tree_leaves(params)])))
+            for what in ("params", "exp_avg", "exp_avg_sq")}
+    return {what: _regroup(params, [held(x, i, what)
+                                    for i, x in enumerate(leaves)])
+            for what in ("params", "exp_avg", "exp_avg_sq")}
 
 
 def make_train_parts(cfg: TransformerConfig, mesh: Any = None,
@@ -394,41 +749,71 @@ def make_train_parts(cfg: TransformerConfig, mesh: Any = None,
 
     ``init_state(generator, device=None)`` draws fresh parameters
     (:func:`init_params`, float32 masters at ``cfg.param_dtype`` on the
-    CUDA device unless ``device`` names another) and returns
-    ``{"params", "opt"}``; ``init_state.from_params(params)`` builds the
-    state around a given tree instead (from :func:`params_from_jax`, say),
-    taking its tensors as they are. ``step(state, tokens) -> (state,
-    loss)`` runs one optimizer step on ``tokens`` (batch, seq + 1) and
-    updates the state in place (the JAX step returns a new state and
-    donates the old); ``loss`` is a 0-dim float32 tensor on the device.
+    CUDA device unless ``device`` names another) and returns the state,
+    ``{"params", "opt"}`` and, over a dp mesh, the layout it was sharded
+    by; ``init_state.from_params(params)`` builds the state around a given
+    full tree instead (from :func:`params_from_jax`, say), taking its
+    tensors as they are and, for ``fsdp``, cutting them into the ranks'
+    pieces (:func:`full_params` puts them back together). ``step(state,
+    tokens) -> (state, loss)`` runs one optimizer step on ``tokens``
+    (batch, seq + 1) and updates the state in place (the JAX step returns
+    a new state and donates the old); ``loss`` is a 0-dim float32 tensor
+    on the device.
 
     ``grad_accum=k`` averages the gradients of ``k`` microbatches before
-    one update; the batch must divide by ``k``. The optimizer options are
-    :func:`make_optimizer`'s. ``mesh`` (a :class:`RankMesh` whose ranks
-    share the device, :func:`check_mesh`) carries the sequence-parallel
-    attention impls; the step makes no explicit dp or tp reduction (see
-    the module note). ``zero1`` and ``fsdp`` raise
-    ``NotImplementedError``."""
+    one update; the batch (each dp rank's rows, over a dp mesh) must
+    divide by ``k``. The optimizer options are :func:`make_optimizer`'s.
+    ``mesh`` is a :class:`RankMesh` whose ranks share the device
+    (:func:`check_mesh`): its ``sp`` axis carries the sequence-parallel
+    attention impls, and a ``dp`` axis above 1 makes the step
+    data-parallel, with ``zero1`` (optimizer state sharded over dp) or
+    ``fsdp`` (parameters too) as options that need a ``dp`` axis; see the
+    module note."""
     if grad_accum < 1:
         raise ValueError(f"mpi_tpu_torch: grad_accum must be >= 1, got "
                          f"{grad_accum}")
     check_mesh(mesh, cfg)
+    has_dp = mesh is not None and "dp" in mesh.axis_names
     for name, on in (("zero1", zero1), ("fsdp", fsdp)):
-        if on:
-            raise NotImplementedError(
-                f"mpi_tpu_torch: {name} is not ported yet; it comes with "
-                f"{_SHARDED_SLICE}")
+        if on and not has_dp:
+            raise ValueError(f"mpi_tpu_torch: {name}=True needs a mesh with "
+                             f"a 'dp' axis")
+    if fsdp and zero1:
+        raise ValueError("mpi_tpu_torch: fsdp subsumes zero1 (optimizer "
+                         "state follows the dp-sharded parameters); pass "
+                         "only fsdp=True")
     build = make_optimizer(optimizer, learning_rate, warmup_steps,
                            total_steps)
+    if has_dp and mesh.shape["dp"] > 1:
+        mode = "fsdp" if fsdp else "zero1" if zero1 else "dp"
+        parallel = _DataParallel(cfg, mesh, build, grad_accum, mode)
+        from_params, step = parallel.from_params, parallel.step
+    else:  # one dp rank: zero1 and fsdp shard nothing, as in JAX
+        def from_params(params: Dict[str, Any]) -> Dict[str, Any]:
+            leaves = tree_leaves(params)
+            for x in leaves:
+                if not x.is_floating_point():
+                    raise TypeError(f"mpi_tpu_torch: cannot train a "
+                                    f"{x.dtype} parameter")
+                x.requires_grad_(True)
+            return {"params": params, "opt": build(leaves)}
 
-    def from_params(params: Dict[str, Any]) -> Dict[str, Any]:
-        leaves = _leaves(params)
-        for x in leaves:
-            if not x.is_floating_point():
-                raise TypeError(f"mpi_tpu_torch: cannot train a "
-                                f"{x.dtype} parameter")
-            x.requires_grad_(True)
-        return {"params": params, "opt": build(leaves)}
+        def step(state: Dict[str, Any], tokens: torch.Tensor
+                 ) -> Tuple[Dict[str, Any], torch.Tensor]:
+            params, opt = state["params"], state["opt"]
+            b = tokens.shape[0]
+            if b % grad_accum:
+                raise ValueError(f"mpi_tpu_torch: batch {b} not divisible "
+                                 f"by grad_accum={grad_accum}")
+            tokens = tokens.to(params["embed"].device)
+            opt.zero_grad(set_to_none=True)
+            loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            for micro in tokens.chunk(grad_accum):
+                micro_loss = loss_fn(params, micro, cfg, mesh) / grad_accum
+                micro_loss.backward()
+                loss += micro_loss.detach()
+            opt.step()
+            return state, loss
 
     def init_state(generator: torch.Generator,
                    device: Optional[Union[str, torch.device]] = None
@@ -436,24 +821,6 @@ def make_train_parts(cfg: TransformerConfig, mesh: Any = None,
         return from_params(init_params(cfg, generator, device))
 
     init_state.from_params = from_params
-
-    def step(state: Dict[str, Any], tokens: torch.Tensor
-             ) -> Tuple[Dict[str, Any], torch.Tensor]:
-        params, opt = state["params"], state["opt"]
-        b = tokens.shape[0]
-        if b % grad_accum:
-            raise ValueError(f"mpi_tpu_torch: batch {b} not divisible by "
-                             f"grad_accum={grad_accum}")
-        tokens = tokens.to(params["embed"].device)
-        opt.zero_grad(set_to_none=True)
-        loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
-        for micro in tokens.chunk(grad_accum):
-            micro_loss = loss_fn(params, micro, cfg, mesh) / grad_accum
-            micro_loss.backward()
-            loss += micro_loss.detach()
-        opt.step()
-        return state, loss
-
     return init_state, step
 
 

@@ -23,8 +23,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 __all__ = ["RANK_AXIS", "RankMesh", "rank_axis", "mesh_devices", "make_mesh",
-           "make_mesh_2d", "mesh_device", "rank_pointers",
-           "describe_topology"]
+           "make_mesh_2d", "axis_slice", "axis_ring", "mesh_device",
+           "rank_pointers", "describe_topology"]
 
 RANK_AXIS = "rank"
 
@@ -104,6 +104,40 @@ def make_mesh_2d(shape: Tuple[int, int],
     if devices is None:
         devices = mesh_devices(n)
     return RankMesh(devices, axes, shape)
+
+
+def _rank_grid(mesh: RankMesh, axis: str) -> Tuple[torch.Tensor, int]:
+    """The rank numbers laid out row-major over the mesh's axes, and the
+    position of ``axis`` among them."""
+    if axis not in mesh.axis_names:
+        raise ValueError(f"mpi_tpu_torch: mesh {mesh.axis_names} has no "
+                         f"{axis!r} axis")
+    sizes = [mesh.shape[a] for a in mesh.axis_names]
+    return (torch.arange(mesh.size).reshape(sizes),
+            mesh.axis_names.index(axis))
+
+
+def axis_slice(mesh: RankMesh, axis: str, index: int) -> RankMesh:
+    """The ranks of ``mesh`` whose ``axis`` coordinate is ``index``, as a
+    mesh over the other axes in their order: the (sp, tp) mesh of dp rank
+    ``index`` of a ``("dp", "sp", "tp")`` mesh. With no other axis it is a
+    one-rank mesh with no axes."""
+    grid, d = _rank_grid(mesh, axis)
+    part = grid.select(d, index)
+    names = tuple(a for a in mesh.axis_names if a != axis)
+    return RankMesh([mesh.devices[r] for r in part.reshape(-1).tolist()],
+                    names, tuple(part.shape))
+
+
+def axis_ring(mesh: RankMesh, axis: str) -> RankMesh:
+    """The ranks along ``axis`` at coordinate 0 of every other axis, as a
+    1-D mesh over ``axis`` in rank order: the dp ring of the (sp, tp)
+    position (0, 0), whose ``size`` the ring collectives take as their
+    rank count."""
+    grid, d = _rank_grid(mesh, axis)
+    index = [slice(None) if a == axis else 0 for a in mesh.axis_names]
+    ranks = grid[tuple(index)].reshape(-1).tolist()
+    return RankMesh([mesh.devices[r] for r in ranks], (axis,))
 
 
 def mesh_device(mesh: RankMesh, x: torch.Tensor, name: str) -> str:

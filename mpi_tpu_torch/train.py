@@ -12,10 +12,15 @@ dense bf16 peak.
 
 ``--attention`` takes every ``attention_impl`` of ``examples/train.py``;
 the sequence-parallel ones (ring, zigzag, Ulysses) run over ``--sp N``
-rank positions of an ``sp`` mesh whose ranks share the chosen device
-(``--sp 1``, the default, means no mesh). The long-context configuration
-(``bench.py``'s ``measure_long_context``: 4 layers, seq 8192, batch 1,
-remat) with zigzag ring attention over 8 ranks is::
+rank positions of an ``sp`` mesh whose ranks share the chosen device.
+``--dp N`` trains data-parallel over N ranks: each computes the gradient
+of its share of the batch and kernel 6 reduces them; ``--zero1`` shards
+the optimizer state over them and ``--fsdp`` the parameters too, as
+``examples/train.py`` offers. ``--dp`` and ``--sp`` make one ``("dp",
+"sp")`` mesh, ranks row-major as ``make_mesh_nd`` lays them out
+(``--dp 1 --sp 1``, the default, means no mesh). The long-context
+configuration (``bench.py``'s ``measure_long_context``: 4 layers, seq
+8192, batch 1, remat) with zigzag ring attention over 8 ranks is::
 
     python -m mpi_tpu_torch.train --layers 4 --seq 8192 --batch 1 \
         --remat --attention zigzag_flash --sp 8
@@ -23,6 +28,7 @@ remat) with zigzag ring attention over 8 ranks is::
 Run::
 
     python -m mpi_tpu_torch.train                 # on the CUDA device
+    python -m mpi_tpu_torch.train --dp 8 --zero1  # 8 dp ranks, ZeRO-1
     python -m mpi_tpu_torch.train --layers 2 --seq 64 --device cpu
 """
 
@@ -99,30 +105,43 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--attention", choices=ATTENTION_IMPLS, default="flash")
     ap.add_argument("--sp", type=int, default=1,
                     help="rank positions of an sp mesh on the device for "
-                         "the sequence-parallel impls (1: no mesh)")
+                         "the sequence-parallel impls")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel ranks on the device, each with its "
+                         "share of the batch")
+    ap.add_argument("--zero1", action="store_true",
+                    help="shard optimizer state over dp (ZeRO-1)")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="fully shard the parameters over dp "
+                         "(ZeRO-3/FSDP; subsumes --zero1)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     args = ap.parse_args(argv)
     if args.steps < 2:
         ap.error("--steps must be at least 2: one warm-up, one timed")
-    if args.sp < 1:
-        ap.error("--sp must be at least 1")
+    if args.sp < 1 or args.dp < 1:
+        ap.error("--sp and --dp must be at least 1")
 
     dev = resolve_device(args.device)
     cfg = flagship_train_config(args.layers, args.seq,
                                 attention_impl=args.attention,
                                 remat=args.remat)
-    mesh = RankMesh([dev] * args.sp, ("sp",)) if args.sp > 1 else None
+    mesh = None
+    if args.dp * args.sp > 1 or args.zero1 or args.fsdp:
+        mesh = RankMesh([dev] * (args.dp * args.sp), ("dp", "sp"),
+                        (args.dp, args.sp))
     init_state, step = make_train_step(cfg, mesh=mesh,
-                                       grad_accum=args.grad_accum)
+                                       grad_accum=args.grad_accum,
+                                       zero1=args.zero1, fsdp=args.fsdp)
     state = init_state(torch.Generator().manual_seed(args.seed), dev)
     tokens = torch.from_numpy(np.random.default_rng(args.seed).integers(
         0, cfg.vocab, (args.batch, args.seq + 1))).to(dev)
     cuda = dev.type == "cuda"
     name = torch.cuda.get_device_name(dev) if cuda else "cpu"
     print(f"flagship train on {name}: batch={args.batch} seq={args.seq} "
-          f"layers={args.layers} attention={args.attention} sp={args.sp} "
+          f"layers={args.layers} attention={args.attention} dp={args.dp} "
+          f"sp={args.sp} zero1={args.zero1} fsdp={args.fsdp} "
           f"remat={args.remat} grad_accum={args.grad_accum}")
 
     _, loss = step(state, tokens)  # warm-up

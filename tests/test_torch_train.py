@@ -217,10 +217,7 @@ def test_indivisible_batch_raises(trees):
     ({"total_steps": 100}, "optimizer slice"),
     # A mesh whose ranks lie on distinct devices; another object than a
     # RankMesh raises TypeError (checked in the body).
-    ({"mesh": RankMesh(["cpu", "cuda:0"], ("sp",))},
-     "sharded-training slice"),
-    ({"zero1": True}, "sharded-training slice"),
-    ({"fsdp": True}, "sharded-training slice"),
+    ({"mesh": RankMesh(["cpu", "cuda:0"], ("sp",))}, "NVLink peer path"),
 ])
 def test_unported_options_raise(kwargs, match):
     _, tcfg = _configs("mha", "dense")
@@ -229,6 +226,32 @@ def test_unported_options_raise(kwargs, match):
     if "mesh" in kwargs:
         with pytest.raises(TypeError, match="RankMesh"):
             make_train_parts(tcfg, mesh=object())
+
+
+@pytest.mark.parametrize("kwargs", [{"zero1": True}, {"fsdp": True}])
+def test_sharding_without_a_dp_axis_raises(kwargs):
+    """zero1 and fsdp need a mesh with a dp axis: ValueError, as the JAX
+    package raises."""
+    _, tcfg = _configs("mha", "dense")
+    with pytest.raises(ValueError, match="'dp' axis"):
+        make_train_parts(tcfg, **kwargs)
+    with pytest.raises(ValueError, match="'dp' axis"):
+        make_train_parts(tcfg, mesh=RankMesh(["cpu"] * 2, ("sp",)),
+                         **kwargs)
+
+
+@pytest.mark.parametrize("flags", [[], ["--zero1"], ["--fsdp"]])
+def test_train_cli_data_parallel_on_cpu(flags, capsys):
+    """``python -m mpi_tpu_torch.train --dp 2`` (and with ``--zero1`` or
+    ``--fsdp``) at tiny widths on the CPU: two ranks of a dp mesh, finite
+    losses."""
+    from mpi_tpu_torch import train
+
+    assert train.main(["--layers", "1", "--seq", "16", "--batch", "2",
+                       "--steps", "2", "--dp", "2", "--device", "cpu",
+                       *flags]) == 0
+    out = capsys.readouterr().out
+    assert "dp=2" in out and "step 1 loss" in out
 
 
 def test_unknown_optimizer_raises():
