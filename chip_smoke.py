@@ -40,8 +40,13 @@ port's paths and checks what comes out:
   the ranks' gradient bucket), ZeRO-1 (its reduce-scatter, and the
   all-gather kernel for the parameters) and FSDP (the all-gather kernel
   before each block), held against the single-device step, against each
-  other bit for bit, and against a faulty control; and a (dp 2, sp 2, tp
-  2) step with zigzag ring attention, FSDP against plain dp;
+  other bit for bit, and against a faulty control;
+* tensor-parallel training: the flagship over 8 tp ranks on the card
+  (Megatron's reductions on the all-reduce kernel), held against the
+  single-device step and against a faulty control, every copy the kernel
+  writes bitwise the same; adafactor and sgd on the warmup-cosine schedule
+  on one device and under tp 8; and a (dp 2, sp 2, tp 2) step with zigzag
+  ring attention, FSDP against plain dp bit for bit;
 
 then times the paths and the kernels, and prints:
 
@@ -49,7 +54,8 @@ then times the paths and the kernels, and prints:
   kernel it replaces, its launches on its path (kernels 5-7: in the
   driver's phase; kernels 1-4 and 7 also ``long_context_launches``, on the
   long-context phase; every kernel ``sharded_launches``, on the
-  data-parallel phase), its largest error against the plain version, and
+  data-parallel phase, and ``tp_launches``, on the tensor-parallel phase),
+  its largest error against the plain version, and
   its time beside its bound, the plain version's time and one PyTorch
   library call's time;
 * the card's name and power limit as ``nvidia-smi`` gives them;
@@ -174,6 +180,29 @@ DP_LOSS_RTOL = 1e-4
 # gradient's sign moves its element by 2 lr. Measured (same card): 0.018
 # sound, 1.23 for the control. DP_PARAM_REL sits between them.
 DP_PARAM_REL = 1e-1
+# Tensor-parallel training (phase 10): the flagship over 8 tp ranks of a
+# ("tp",) mesh on the card (one head, 512 of d_ff and 1024 of vocab a
+# rank) against the single-device step of phase 9, from the same seeded
+# state and batch, TP_STEPS steps each.
+TP_RANKS = 8
+TP_STEPS = 3
+TP_TIMED_STEPS = 3
+# tp 8 against one device: the loss gap relative to one device's loss,
+# and the parameters' gap ||p_tp - p_one|| / ||p_one - p_0|| as in
+# DP_PARAM_REL. Each tp rank's product is rounded to bf16 before the
+# float32 sum where one device rounds the whole product once, and AdamW's
+# first update is about lr·sign(g). Measured (NVIDIA H100 80GB HBM3, 700
+# W): loss gaps 1.2e-5 to 2.0e-5 (AdamW), up to 2.7e-5 (adafactor and sgd
+# at rate 1e-2), parameter gaps 0.071 (AdamW), 0.041, 0.0077; the faulty
+# control (each tp reduction keeping rank 0's partial alone) missed by
+# 0.22 to 0.31 in the loss and 1.41 in the parameters. Each tolerance sits
+# between them (TP_LOSS_RTOL 37 times the largest sound gap and 220 times
+# under the control's least; TP_PARAM_REL 4.2 times and 4.7 times), and
+# the phase checks that the control still falls outside both.
+TP_LOSS_RTOL = 1e-3
+TP_PARAM_REL = 3e-1
+# The rate of (d)'s adafactor and sgd runs, examples/train.py's.
+TP_OPT_LR = 1e-2
 # The composition step: 2 layers, seq 2048, batch 4, zigzag_flash over a
 # (dp 2, sp 2, tp 2) mesh, fsdp against plain dp.
 COMPOSE = dict(layers=2, seq=2048, batch=4, steps=2)
@@ -1559,13 +1588,12 @@ def dp_slice(dev, card):
     control outside both tolerances; falling losses; each rank's moment
     bytes (zero1) and parameter bytes (fsdp) 1/dp of plain dp's. Then fsdp
     under remat (each block gathered again in the backward) for DP_STEPS
-    steps against fsdp without it, losses and parameters bit for bit, the
-    composition step (COMPOSE: fsdp against plain dp over a (dp 2, sp 2, tp
-    2) mesh with zigzag_flash, which puts kernel 7 on the path), kernels 5
-    and 6 against their plain versions at this phase's shapes, bitwise,
-    their times there, and ms per step of (a)-(d) with a profile of one
-    step each. Returns ({kernel: launches on this phase's main path, (b)-(d)
-    and the composition step}, {kernel: max |kernel - plain|})."""
+    steps against fsdp without it, losses and parameters bit for bit,
+    kernels 5 and 6 against their plain versions at this phase's shapes,
+    bitwise, their times there, and ms per step of (a)-(d) with a profile
+    of one step each. Returns ({kernel: launches on this phase's main path,
+    (b)-(d)}, {kernel: max |kernel - plain|}, (a)'s (losses, parameters
+    after DP_STEPS steps, ms per step)) for phase 10."""
     import importlib
 
     import numpy as np
@@ -1649,46 +1677,13 @@ def dp_slice(dev, card):
 
     steps, states, losses = {}, {}, {}
     steps["one"], states["one"], losses["one"] = run("one")
-    # ---- the main path: (b)-(d) and the composition step, counted alone
+    # ---- the main path: (b)-(d), counted alone
     for w in wrappers.values():
         w.launches = 0
     for mode in ("dp", "zero1", "fsdp"):
         steps[mode], states[mode], losses[mode] = run(mode)
 
-    ccfg = flagship_train_config(COMPOSE["layers"], COMPOSE["seq"],
-                                 attention_impl="zigzag_flash")
-    cmesh = make_mesh_nd(8, devices=[dev] * 8)
-    cdp = cmesh.shape["dp"]
-    check(tuple(cmesh.shape.values()) == (2, 2, 2),
-          f"composition mesh {cmesh.shape}")
-    ctoks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, ccfg.vocab, (COMPOSE["batch"], COMPOSE["seq"] + 1))).to(dev)
-    cp0 = init_params(ccfg, torch.Generator().manual_seed(1), dev)
-    ring_k = ring_launches("zigzag_flash", cmesh.shape["sp"],
-                           COMPOSE["layers"], False)
-    comp = {}
-    for mode in ("dp", "fsdp"):
-        k5 = cdp * (1 + COMPOSE["layers"]) if mode == "fsdp" else 0
-        want = [cdp * k for k in ring_k[:3]] + [k5, 1, cdp * ring_k[3]]
-        _, cstate, closs = run(mode, ccfg, cmesh, cp0, ctoks,
-                               COMPOSE["steps"], want)
-        check(cstate["layout"].rest == 0,
-              f"composition {mode}: replicated leaves at dp {cdp}")
-        comp[mode] = (closs, leaves(cstate))
-        del cstate
     sharded = dict(zip(names, counts()))
-    check(comp["fsdp"][0] == comp["dp"][0] and all(
-        bits_equal(a, b) for a, b in zip(comp["fsdp"][1], comp["dp"][1])),
-        f"composition: fsdp losses {comp['fsdp'][0]} or parameters differ "
-        f"from plain dp's {comp['dp'][0]} in their bits")
-    print(f"composition (dp 2, sp 2, tp 2; zigzag_flash, "
-          f"{COMPOSE['layers']} layers, seq {COMPOSE['seq']}, batch "
-          f"{COMPOSE['batch']}): plain dp losses {comp['dp'][0]}, fsdp "
-          f"{comp['fsdp'][0]}, the same bits, parameters too; launches per "
-          f"step of kernels 1-3, 5, 6, 7 as counted from the code "
-          f"(kernels 1-3 {ring_k[0] * cdp}, kernel 7 {ring_k[3] * cdp})")
-    del comp, cp0
-    torch.cuda.empty_cache()
 
     # ---- (e) the faulty control ------------------------------------------
     def rank_zero(contribs, ring, op="sum"):
@@ -1706,6 +1701,7 @@ def dp_slice(dev, card):
     # ---- agreement ---------------------------------------------------------
     full = {mode: leaves(states[mode]) for mode in ("one", "dp", "zero1",
                                                     "fsdp")}
+    one_leaves = [x.clone() for x in full["one"]]  # the steps below move it
     loss_gap = {mode: [abs(a - b) / abs(b) for a, b in
                        zip(losses[mode], losses["one"])]
                 for mode in ("dp", "control")}
@@ -1858,6 +1854,7 @@ def dp_slice(dev, card):
     torch.cuda.empty_cache()
 
     # ---- times ------------------------------------------------------------
+    step_ms = {}
     for mode in ("one", "dp", "zero1", "fsdp"):
         step, state = steps[mode], states[mode]
         start = torch.cuda.Event(enable_timing=True)
@@ -1870,7 +1867,7 @@ def dp_slice(dev, card):
         host = (time.perf_counter() - host) * 1e3 / DP_TIMED_STEPS
         end.record()
         torch.cuda.synchronize()
-        ms = start.elapsed_time(end) / DP_TIMED_STEPS
+        ms = step_ms[mode] = start.elapsed_time(end) / DP_TIMED_STEPS
         label = {"one": "(a) one device", "dp": "(b) plain dp",
                  "zero1": "(c) zero1", "fsdp": "(d) fsdp"}[mode]
         print(f"{label}: {ms!r} ms per step (CUDA events over "
@@ -1888,8 +1885,332 @@ def dp_slice(dev, card):
         states[mode] = None
         torch.cuda.empty_cache()
     print(f"data-parallel phase launches (main path: (b)-(d), {DP_STEPS} "
-          f"steps each, and the composition step): {sharded}")
-    return sharded, errs
+          f"steps each): {sharded}")
+    return sharded, errs, (losses["one"], one_leaves, step_ms["one"])
+
+
+def tp_launches(layers, dp=1, remat=False):
+    """Launches of kernel 6 by the tp reductions of one training step,
+    counted from the code (``parallel/tensor_parallel.py``,
+    ``models/transformer.py``): for each dp rank, per layer the reduce
+    after wo and after w2 in the forward (again in remat's replay) and the
+    copies' backward before the q/k/v projections and before w1; once, the
+    embedding's reduce, the logits' copy backward, the loss's row max and
+    its sums."""
+    replay = 2 if remat else 1
+    return dp * (2 * layers * replay + 2 * layers + 4)
+
+
+def tp_slice(dev, card, one=None):
+    """Phase 10: tensor-parallel training of the flagship (8 layers, seq
+    1024, batch 8, bf16 over float32 masters, flash attention) over
+    TP_RANKS tp ranks of a ``("tp",)`` mesh on the card, from one seeded set
+    of parameters and one seeded batch, TP_STEPS steps each: (a) the
+    single-device step (phase 9's, handed in as ``one``: losses, parameters
+    after TP_STEPS AdamW steps, ms per step; run here when None); (b) tp 8,
+    AdamW; (c) a faulty control, (b) with every tp reduction keeping rank
+    0's partial alone; (d) adafactor and sgd on the warmup-cosine schedule
+    (warmup 1, total TP_STEPS, rate TP_OPT_LR), each on one device and
+    under tp 8; (e) the composition step (COMPOSE: zigzag_flash over (dp 2,
+    sp 2, tp 2), fsdp against plain dp, bit for bit), which puts kernels 5
+    and 7 on the path. Checks, each raising: every step's launches of
+    kernels 1-3, 5, 6 (and 7 in (e)) against tp_launches (counted from the
+    code); (b) against (a) within TP_LOSS_RTOL and TP_PARAM_REL, and (d)'s
+    tp runs against their single-device runs too; the control outside
+    both; every copy kernel 6 writes in (b) bitwise the same; falling
+    losses in every sound run; adafactor's optimizer state under 0.6 of
+    AdamW's bytes. Then (b) with the partials reduced in bf16 (measured,
+    the choice's alternative), kernel 6 against its plain version at the
+    tp shapes (bitwise) and its time there, and (b)'s ms per step with a
+    profile of one step. Returns ({kernel: launches on this phase's main
+    path, (b), (d) and (e)}, {kernel: max |kernel - plain|})."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from mpi_tpu_torch.models import (full_params, init_params, make_mesh_nd,
+                                      make_train_step)
+    from mpi_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
+                                             flash_fwd)
+    from mpi_tpu_torch.ops.ring_collectives import (
+        ring_allgather, ring_allreduce, ring_allreduce_plain)
+    from mpi_tpu_torch.parallel import RankMesh, sendrecv
+    from mpi_tpu_torch.parallel.mesh import axis_ring
+    from mpi_tpu_torch.parallel.zero import tree_leaves
+    from mpi_tpu_torch.train import flagship_train_config
+
+    tpm = importlib.import_module("mpi_tpu_torch.parallel.tensor_parallel")
+    wrappers = {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
+                "flash_bwd_dkv": flash_bwd_dkv, "ring_allgather":
+                ring_allgather, "ring_allreduce": ring_allreduce,
+                "sendrecv": sendrecv}
+    names = list(wrappers)
+
+    def counts():
+        return [wrappers[k].launches for k in names]
+
+    def clone(tree):
+        if isinstance(tree, dict):
+            return {k: clone(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [clone(v) for v in tree]
+        return tree.detach().clone()
+
+    n = TP_RANKS
+    cfg = flagship_train_config()
+    layers = cfg.n_layers
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (8, cfg.max_seq))).to(dev)
+    params0 = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    mesh = RankMesh([dev] * n, ("tp",))
+
+    def run(label, m, kw, want, c=cfg, p0=params0, toks=tokens,
+            steps=TP_STEPS):
+        """``steps`` steps from a copy of ``p0`` over mesh ``m``: (step,
+        state, losses); each step's launches of the first len(want) of
+        kernels 1-3, 5, 6, 7 must equal ``want``."""
+        init_state, step = make_train_step(c, mesh=m, **kw)
+        state = init_state.from_params(clone(p0))
+        losses = []
+        for i in range(steps):
+            before = counts()
+            state, loss = step(state, toks)
+            got = [a - b for a, b in zip(counts(), before)][:len(want)]
+            check(got == want,
+                  f"{label} step {i}: kernels {names[:len(want)]} launched "
+                  f"{got} times, want {want} (counted from the code)")
+            losses.append(float(loss))
+        check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+        return step, state, losses
+
+    def leaves(state):
+        return [x.detach() for x in tree_leaves(full_params(state))]
+
+    p0 = leaves({"params": params0})
+
+    def rel_gap(got, ref):
+        """||got - ref|| / ||ref - p_0|| over every leaf."""
+        num = sum(float(((a.double() - b.double()) ** 2).sum())
+                  for a, b in zip(got, ref))
+        den = sum(float(((b.double() - c.double()) ** 2).sum())
+                  for b, c in zip(ref, p0))
+        return (num / den) ** 0.5
+
+    def loss_gap(got, ref):
+        return [abs(a - b) / abs(b) for a, b in zip(got, ref)]
+
+    def opt_bytes(state):
+        return sum(t.numel() * t.element_size()
+                   for held in state["opt"].state.values()
+                   for k, t in held.items()
+                   if k != "step" and torch.is_tensor(t))
+
+    one_k = [layers, layers, layers, 0, 0]
+    tp_k = [layers, layers, layers, 0, tp_launches(layers)]
+    if one is None:
+        _, ostate, olosses = run("(a) one device", None, {}, one_k)
+        one = (olosses, [x.clone() for x in leaves(ostate)], None)
+        del ostate
+    one_losses, one_leaves, one_ms = one
+
+    # ---- the main path: (b), (d) and (e), counted alone -------------------
+    copies = {"calls": 0, "differ": 0}
+
+    def checked(contribs, ring, op="sum"):
+        """Kernel 6 as the tp operators call it; every rank's copy of the
+        result must hold copy 0's bits."""
+        out = ring_allreduce(contribs, ring, op)
+        bits = out.view({2: torch.int16, 4: torch.int32}[out.element_size()])
+        copies["calls"] += 1
+        copies["differ"] += int(not bool((bits == bits[:1]).all()))
+        return out
+
+    for w in wrappers.values():
+        w.launches = 0
+    tpm.ring_allreduce = checked
+    try:
+        step_b, state_b, losses_b = run("(b) tp 8", mesh, {}, tp_k)
+    finally:
+        tpm.ring_allreduce = ring_allreduce
+    check(copies["calls"] == TP_STEPS * tp_k[4] and copies["differ"] == 0,
+          f"(b): {copies['differ']} of {copies['calls']} kernel-6 results "
+          f"hold copies that differ from copy 0 (want {TP_STEPS * tp_k[4]} "
+          f"results, every copy the same bits)")
+    full_b = [x.clone() for x in leaves(state_b)]
+    adamw_bytes = opt_bytes(state_b)
+
+    sched = dict(learning_rate=TP_OPT_LR, warmup_steps=1,
+                 total_steps=TP_STEPS)
+    opt_runs = {}
+    for name in ("adafactor", "sgd"):
+        for where, m, want in (("one", None, one_k), ("tp", mesh, tp_k)):
+            _, ostate, olosses = run(f"(d) {name} {where}", m,
+                                     {"optimizer": name, **sched}, want)
+            opt_runs[name, where] = (olosses, [x.clone() for x in
+                                               leaves(ostate)],
+                                     opt_bytes(ostate))
+            del ostate
+    torch.cuda.empty_cache()
+
+    ccfg = flagship_train_config(COMPOSE["layers"], COMPOSE["seq"],
+                                 attention_impl="zigzag_flash")
+    cmesh = make_mesh_nd(8, devices=[dev] * 8)
+    cdp = cmesh.shape["dp"]
+    check(tuple(cmesh.shape.values()) == (2, 2, 2),
+          f"composition mesh {cmesh.shape}")
+    ctoks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, ccfg.vocab, (COMPOSE["batch"], COMPOSE["seq"] + 1))).to(dev)
+    cp0 = init_params(ccfg, torch.Generator().manual_seed(1), dev)
+    ring_k = ring_launches("zigzag_flash", cmesh.shape["sp"],
+                           COMPOSE["layers"], False)
+    ck6 = 1 + tp_launches(COMPOSE["layers"], cdp)
+    comp = {}
+    for mode in ("dp", "fsdp"):
+        k5 = cdp * (1 + COMPOSE["layers"]) if mode == "fsdp" else 0
+        want = [cdp * k for k in ring_k[:3]] + [k5, ck6, cdp * ring_k[3]]
+        _, cstate, closs = run(f"(e) composition {mode}", cmesh,
+                               {"fsdp": mode == "fsdp"}, want, ccfg, cp0,
+                               ctoks, COMPOSE["steps"])
+        check(cstate["layout"].rest == 0,
+              f"composition {mode}: replicated leaves at dp {cdp}")
+        comp[mode] = (closs, leaves(cstate))
+        del cstate
+    main_counts = dict(zip(names, counts()))
+    check(comp["fsdp"][0] == comp["dp"][0] and all(
+        bits_equal(a, b) for a, b in zip(comp["fsdp"][1], comp["dp"][1])),
+        f"composition: fsdp losses {comp['fsdp'][0]} or parameters differ "
+        f"from plain dp's {comp['dp'][0]} in their bits")
+    print(f"(e) composition (dp 2, sp 2, tp 2; zigzag_flash, "
+          f"{COMPOSE['layers']} layers, seq {COMPOSE['seq']}, batch "
+          f"{COMPOSE['batch']}): plain dp losses {comp['dp'][0]}, fsdp "
+          f"{comp['fsdp'][0]}, the same bits, parameters too; launches per "
+          f"step of kernels 1-3, 5, 6, 7 as counted from the code (kernels "
+          f"1-3 {ring_k[0] * cdp}, kernel 6 {ck6}: 1 bucket and "
+          f"{ck6 - 1} tp reductions, kernel 7 {ring_k[3] * cdp})")
+    del cp0
+    torch.cuda.empty_cache()
+
+    # ---- (c) the faulty control, and (b) with bf16 partials ---------------
+    def rank_zero(contribs, ring, op="sum"):
+        return contribs[:1].expand_as(contribs)
+
+    tpm.ring_allreduce = rank_zero
+    try:
+        _, cstate, losses_c = run("(c) control", mesh, {},
+                                  [layers, layers, layers, 0, 0])
+    finally:
+        tpm.ring_allreduce = ring_allreduce
+    ctrl = [x.clone() for x in leaves(cstate)]
+    del cstate
+    tpm.REDUCE_DTYPE = torch.bfloat16
+    try:
+        _, hstate, losses_h = run("(b) bf16 partials", mesh, {}, tp_k)
+    finally:
+        tpm.REDUCE_DTYPE = torch.float32
+    half = [x.clone() for x in leaves(hstate)]
+    del hstate
+    torch.cuda.empty_cache()
+
+    # ---- agreement ---------------------------------------------------------
+    gaps = {"(b)": (loss_gap(losses_b, one_losses),
+                    rel_gap(full_b, one_leaves)),
+            "(c)": (loss_gap(losses_c, one_losses),
+                    rel_gap(ctrl, one_leaves)),
+            "(b) bf16 partials": (loss_gap(losses_h, one_losses),
+                                  rel_gap(half, one_leaves))}
+    for name in ("adafactor", "sgd"):
+        got, ref = opt_runs[name, "tp"], opt_runs[name, "one"]
+        gaps[f"(d) {name}"] = (loss_gap(got[0], ref[0]),
+                               rel_gap(got[1], ref[1]))
+    print(f"tensor-parallel flagship, {n} tp ranks on the card ({TP_STEPS} "
+          f"steps, batch 8, seq {cfg.max_seq - 1}): losses (a) one device "
+          f"{one_losses}, (b) tp 8 {losses_b}, (c) control {losses_c}, (b) "
+          f"with bf16 partials {losses_h}; (d) "
+          f"{ {f'{k[0]} {k[1]}': v[0] for k, v in opt_runs.items()} }")
+    for label, (lg, pg) in gaps.items():
+        print(f"{label} against one device: relative loss gaps {lg} (rtol "
+              f"{TP_LOSS_RTOL}), parameter gap ||p - p_one|| / ||p_one - "
+              f"p_0|| {pg!r} (limit {TP_PARAM_REL})")
+    for label in ("(b)", "(d) adafactor", "(d) sgd"):
+        lg, pg = gaps[label]
+        check(max(lg) <= TP_LOSS_RTOL and pg <= TP_PARAM_REL,
+              f"{label}: loss gaps {lg} or parameter gap {pg} to one device "
+              f"outside rtol {TP_LOSS_RTOL} / limit {TP_PARAM_REL}")
+    lg, pg = gaps["(c)"]
+    check(min(lg) > TP_LOSS_RTOL and pg > TP_PARAM_REL,
+          f"control (rank 0's partials alone): loss gaps {lg} or parameter "
+          f"gap {pg} inside rtol {TP_LOSS_RTOL} / limit {TP_PARAM_REL}")
+    sound = {"(a)": one_losses, "(b)": losses_b,
+             "(e) dp": comp["dp"][0], "(e) fsdp": comp["fsdp"][0],
+             **{f"(d) {k[0]} {k[1]}": v[0] for k, v in opt_runs.items()}}
+    for label, ls in sound.items():
+        check(ls[-1] < ls[0], f"{label} loss did not fall: {ls}")
+    fac_bytes = opt_runs["adafactor", "one"][2]
+    print(f"optimizer state bytes: AdamW {adamw_bytes}, adafactor "
+          f"{fac_bytes} ({fac_bytes / adamw_bytes!r} of AdamW's), sgd "
+          f"{opt_runs['sgd', 'one'][2]}")
+    check(fac_bytes < 0.6 * adamw_bytes,
+          f"adafactor state {fac_bytes} bytes, not under 0.6 of AdamW's "
+          f"{adamw_bytes}")
+    del ctrl, half, comp, opt_runs
+    torch.cuda.empty_cache()
+
+    # ---- kernel 6 against plain at the tp shapes -------------------------
+    ring = axis_ring(mesh, "tp")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    m = 8 * (cfg.max_seq - 1) * cfg.d_model  # a (b, s, d) activation
+    rows = 8 * (cfg.max_seq - 1)  # the loss's row max
+    errs = {"ring_allreduce": 0.0}
+    for label, x, op in (
+            ("the (b, s, d) partials", torch.randn(n, m, generator=gen,
+                                                   device=dev), "sum"),
+            ("the row max", torch.randn(n, rows, generator=gen,
+                                        device=dev), "max")):
+        got, ref = ring_allreduce(x, ring, op), ring_allreduce_plain(x, op)
+        torch.cuda.synchronize()
+        check(bits_equal(got, ref), f"kernel 6 on {label} {tuple(x.shape)} "
+                                    f"({op}) differs from its plain version")
+        errs["ring_allreduce"] = max(errs["ring_allreduce"],
+                                     max_abs_diff(got, ref))
+        del got, ref
+    x = torch.randn(n, m, generator=gen, device=dev)
+    ar_ms = kernel_ms(lambda c: ring_allreduce(c, ring), [(x,)], 20)
+    ar_bound = bound(2 * n * m * 4, (n - 1) * m, torch.float32)[0]
+    print(f"kernel 6 at the tp shapes, bitwise equal to plain (sum of "
+          f"({n}, {m}) float32 partials, max of ({n}, {rows})); the partials' "
+          f"all-reduce {ar_ms * 1e3!r} us against a {ar_bound * 1e3!r} us "
+          f"bound  [{card}]")
+    del x
+    torch.cuda.empty_cache()
+
+    # ---- times ------------------------------------------------------------
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    host = time.perf_counter()
+    for _ in range(TP_TIMED_STEPS):
+        step_b(state_b, tokens)
+    host = (time.perf_counter() - host) * 1e3 / TP_TIMED_STEPS
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / TP_TIMED_STEPS
+    print(f"(b) tp 8: {ms!r} ms per step (CUDA events over {TP_TIMED_STEPS} "
+          f"steps after {TP_STEPS}), host enqueue {host!r} ms per step; (a) "
+          f"one device {one_ms!r} ms per step (phase 9)  [{card}]")
+    prof = profile_steps(lambda: step_b(state_b, tokens), 1, "(b) tp 8", ms,
+                         card)
+    if prof is not None:
+        g = prof["groups"]
+        print(f"(b) tp 8: kernel 6 {g.get('all-reduce kernel 6', (0, 0))} "
+              f"(ms, launches) a step; device busy share {prof['busy']!r}; "
+              f"{prof['launches']!r} launches a step  [{card}]")
+    del state_b
+    torch.cuda.empty_cache()
+    print(f"tensor-parallel phase launches (main path: (b), (d) and (e)): "
+          f"{main_counts}")
+    return main_counts, errs
 
 
 def decode_times(dev, gen, card, cfg):
@@ -2198,10 +2519,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 9. data-parallel training: dp ranks on the card -----------------
-    sharded_launches, dp_err = dp_slice(dev, card)
+    sharded_launches, dp_err, one = dp_slice(dev, card)
     torch.cuda.empty_cache()
 
-    # ---- 10. result -----------------------------------------------------
+    # ---- 10. tensor-parallel training: tp ranks on the card ---------------
+    tp_counts, tp_err = tp_slice(dev, card, one)
+    del one
+    torch.cuda.empty_cache()
+
+    # ---- 11. result -----------------------------------------------------
     source = "mpi_tpu_torch/ops/csrc/flash_attention.cu"
     kernels = []
     for name, replaces, n in zip(
@@ -2231,14 +2557,16 @@ def main() -> int:
                         "replaces": replaces,
                         "launches": driver_launches[name],
                         "max_abs_err": max(ring_err[name], slice_err[name],
-                                           dp_err.get(name, 0.0)),
+                                           dp_err.get(name, 0.0),
+                                           tp_err.get(name, 0.0)),
                         **ring_rows[name]})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{**{key: row[key] for key in keys},
                 **({"long_context_launches": long_launches[row["name"]]}
                    if row["name"] in long_launches else {}),
-                "sharded_launches": sharded_launches.get(row["name"], 0)}
+                "sharded_launches": sharded_launches.get(row["name"], 0),
+                "tp_launches": tp_counts.get(row["name"], 0)}
                for row in kernels]
     print(card)
     print(json.dumps({"kernels": kernels}))

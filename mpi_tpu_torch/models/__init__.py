@@ -1,8 +1,10 @@
 """The flagship decoder LM: config, parameters, forward, the next-token
-loss and one AdamW training step on one device (its attention sequence
-parallel over a rank mesh's ``sp`` axis, its batch data-parallel over the
-``dp`` axis, with ZeRO-1 or FSDP as options), KV-cache generation, int8
-weights, and loading the JAX package's tree."""
+loss and one training step on one device (AdamW, adafactor or sgd, at a
+constant rate or on optax's schedules; its attention sequence parallel
+over a rank mesh's ``sp`` axis, its batch data-parallel over the ``dp``
+axis, with ZeRO-1 or FSDP as options, the model split over the ``tp``
+axis), KV-cache generation, int8 weights, and loading the JAX package's
+tree."""
 
 from .convert import params_from_jax
 from .generate import decode_step, generate, prefill

@@ -1,7 +1,8 @@
 """Decoder-only Transformer LM: forward, loss and training.
 
 Counterpart of ``mpi_tpu/models/transformer.py``: the config, the parameter
-tree, the forward pass, the next-token loss and one AdamW training step.
+tree, the forward pass, the next-token loss and one training step
+(AdamW, adafactor or sgd, at a constant rate or on optax's schedules).
 The parameter tree and the einsum layouts are the JAX package's (``wq (d,
 h, hd)``, ``wo (h, hd, d)``, ...), so the JAX tree loads as it is
 (:mod:`.convert`) and the two compute the same thing. Every
@@ -14,22 +15,37 @@ flash chunks) over the ``sp`` axis of a :class:`RankMesh`
 **The mesh.** The ranks of a :class:`RankMesh` share one device, row-major
 over its axes (``("dp", "sp", "tp")`` from :func:`make_mesh_nd`). The
 sequence-parallel impls communicate over its ``sp`` axis (kernel 7 for the
-ring's hops). A training step over a mesh whose ``dp`` axis is above 1 is
+ring's hops). A ``tp`` axis above 1 splits the model Megatron-style, as
+:func:`param_specs` lays it out, with the reductions that GSPMD inserts in
+the JAX package run explicitly on kernel 6
+(:mod:`..parallel.tensor_parallel`): tp rank r projects with its heads'
+columns of wq, wk and wv and its d_ff columns of w1 (one einsum with an
+explicit tp dimension each, their input through ``tp_copy``), contracts
+its heads with its rows of wo and its d_ff with its rows of w2 into
+partials that ``tp_reduce`` sums, looks up the tokens of its vocab range,
+and computes the logits of its vocab range, whose cross-entropy is
+vocab-parallel. Attention itself needs no communication and stays one
+launch over all heads. The parameters stay whole tensors; each tp rank
+reads its slice as a view, so a sharded leaf's gradient is the ranks'
+disjoint slices, and a replicated leaf (the norms, the position table) is
+read once, on the activation every tp rank shares, so its gradient is
+counted once.
+
+A training step over a mesh whose ``dp`` axis is above 1 is
 data-parallel: dp rank r computes the loss of its own rows of the batch,
 ``tokens[r·b/dp:(r+1)·b/dp]`` (the JAX package's ``P('dp', 'sp')`` split),
-over its own (sp, tp) sub-mesh, and its gradient becomes row r of a
-``(dp, m)`` float32 bucket. Kernel 6 then reduces the bucket over the dp
-ring (:func:`~mpi_tpu_torch.parallel.mesh.axis_ring`) and AdamW updates
+over its own (sp, tp) sub-mesh, with its own tp reductions, and its
+gradient becomes row r of a ``(dp, m)`` float32 bucket. Kernel 6 then
+reduces the bucket over the dp ring
+(:func:`~mpi_tpu_torch.parallel.mesh.axis_ring`) and the optimizer updates
 the parameters; with ``zero1`` the reduction is a reduce-scatter, each
-rank updates its shard with its shard of the moments, and kernel 5 gathers
-the parameters; with ``fsdp`` the parameters live as shards between steps
-and kernel 5 gathers each block's weights just before the block runs
-(:mod:`..parallel.zero` holds the layouts). The returned loss is the mean
-of the ranks' losses. The ``tp`` ranks stay the head dimension of the same
-launches: ``tp`` only changes which dimension ``dp`` claims (``wo (h, hd,
-d)`` gets ``dp`` on dimension 1 under ``tp``, on dimension 0 without), and
-no explicit tp reduction runs. The explicit tp reductions and the other
-optimizers and schedules come next; a mesh over several distinct devices
+rank updates its shard with its shard of the optimizer state, and kernel 5
+gathers the parameters; with ``fsdp`` the parameters live as shards
+between steps and kernel 5 gathers each block's weights just before the
+block runs (:mod:`..parallel.zero` holds the layouts; dp claims the first
+dimension tp leaves free, ``wo (h, hd, d)`` dimension 1 under tp). The
+returned loss is the mean of the ranks' losses. The optimizers are
+optax's rules (:mod:`.optimizers`). A mesh over several distinct devices
 raises ``NotImplementedError`` (the NVLink peer path of kernels 5-7); the
 Mixture-of-Experts FFN belongs to a later slice.
 """
@@ -53,8 +69,12 @@ from ..parallel.ring_attention import ring_attention_sharded
 from ..parallel.zero import (DpLayout, fsdp_specs, pieces_view, spec_dim,
                              spec_leaves, tree_leaves, tree_with_leaves,
                              unshard, zero1_specs)
+from ..parallel.tensor_parallel import (tp_copy, tp_reduce, tp_ring,
+                                        tp_size, vocab_parallel_embed,
+                                        vocab_parallel_xent)
 from ..parallel.ulysses import ulysses_attention_sharded
 from ..utils.platform import resolve_device
+from .optimizers import build_optimizer, learning_rate_schedule
 
 __all__ = ["TransformerConfig", "init_params", "param_specs", "sanitize_spec",
            "sane_param_specs", "forward", "forward_with_aux", "apply_rope",
@@ -266,11 +286,22 @@ def repeat_kv_heads(k, v, cfg: TransformerConfig):
 
 
 def _attention(x, blk, cfg: TransformerConfig,
-               mesh: Optional[RankMesh] = None):
+               mesh: Optional[RankMesh] = None,
+               ring: Optional[RankMesh] = None):
+    """Multi-head attention over the tp ranks of ``ring``: rank r projects
+    ``x`` with its heads' columns of wq, wk and wv (heads ``[r·h/tp,
+    (r+1)·h/tp)``, kv heads likewise), the attention runs over all heads in
+    one call, and rank r contracts its heads with its rows of wo into a
+    partial that :func:`tp_reduce` sums."""
     s = x.shape[1]
-    q = torch.einsum("bsd,dhk->bshk", x, blk["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, blk["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, blk["wv"].to(x.dtype))
+    tp = tp_size(ring)
+    xs = tp_copy(x, ring)
+
+    def heads(w):  # (d, heads, hd) -> (b, s, heads, hd), rank-major heads
+        return torch.einsum("tbsd,dthk->bsthk", xs,
+                            w.to(x.dtype).unflatten(1, (tp, -1))).flatten(2, 3)
+
+    q, k, v = heads(blk["wq"]), heads(blk["wk"]), heads(blk["wv"])
     if cfg.rope:
         # Global positions, applied before any sequence sharding: the
         # ring and zigzag layouts then carry already-rotated values.
@@ -307,18 +338,26 @@ def _attention(x, blk, cfg: TransformerConfig,
             f"mpi_tpu_torch: unknown attention_impl {impl!r}: expected "
             f"dense|flash|blockwise|ring|ring_flash|zigzag|zigzag_flash|"
             f"ulysses|ulysses_flash")
-    return torch.einsum("bshk,hkd->bsd", ctx, blk["wo"].to(x.dtype))
+    partial = torch.einsum("bsthk,thkd->tbsd", ctx.unflatten(2, (tp, -1)),
+                           blk["wo"].to(x.dtype).unflatten(0, (tp, -1)))
+    return tp_reduce(partial, ring)
 
 
-def _ffn(x, blk, cfg: TransformerConfig):
-    """Position-wise dense FFN with tanh-GELU (``jax.nn.gelu``'s default)."""
+def _ffn(x, blk, cfg: TransformerConfig, ring: Optional[RankMesh] = None):
+    """Position-wise dense FFN with tanh-GELU (``jax.nn.gelu``'s default),
+    over the tp ranks of ``ring``: rank r its d_ff columns of w1 and rows of
+    w2, the partials summed by :func:`tp_reduce`."""
     if cfg.n_experts > 0:
         raise NotImplementedError(
             "mpi_tpu_torch: Mixture-of-Experts FFN belongs to a later slice "
             "of the port")
-    h = F.gelu(torch.einsum("bsd,df->bsf", x, blk["w1"].to(x.dtype)),
+    tp = tp_size(ring)
+    h = F.gelu(torch.einsum("tbsd,dtf->tbsf", tp_copy(x, ring),
+                            blk["w1"].to(x.dtype).unflatten(1, (tp, -1))),
                approximate="tanh")
-    return torch.einsum("bsf,fd->bsd", h, blk["w2"].to(x.dtype))
+    partial = torch.einsum("tbsf,tfd->tbsd", h,
+                           blk["w2"].to(x.dtype).unflatten(0, (tp, -1)))
+    return tp_reduce(partial, ring)
 
 
 def block_body(x, blk, cfg: TransformerConfig,
@@ -329,28 +368,25 @@ def block_body(x, blk, cfg: TransformerConfig,
     recomputes the block in the backward."""
     if callable(blk):
         blk = blk()
+    ring = tp_ring(mesh)
     h = _layernorm(x, blk["ln1"]["scale"].to(x.dtype),
                    blk["ln1"]["bias"].to(x.dtype))
-    x = x + _attention(h, blk, cfg, mesh)
+    x = x + _attention(h, blk, cfg, mesh, ring)
     h = _layernorm(x, blk["ln2"]["scale"].to(x.dtype),
                    blk["ln2"]["bias"].to(x.dtype))
-    return x + _ffn(h, blk, cfg)
+    return x + _ffn(h, blk, cfg, ring)
 
 
-def forward_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
-                     cfg: TransformerConfig, mesh: Optional[RankMesh] = None
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (batch, seq) → (logits (batch, seq, vocab), aux loss), on the
-    device the parameters lie on. The aux loss is the MoE load-balance
-    penalty, 0 for the dense FFN (the only one ported). With
-    ``cfg.remat`` each block is recomputed in the backward pass
-    (``torch.utils.checkpoint``, where JAX has ``jax.checkpoint``). The
-    sequence-parallel impls run over ``mesh``'s ``sp`` axis (see the
-    module note)."""
+def _vocab_parallel_forward(params: Dict[str, Any], tokens: torch.Tensor,
+                            cfg: TransformerConfig,
+                            mesh: Optional[RankMesh]
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (batch, seq) → (logits ``(tp, batch, seq, vocab/tp)``, tp
+    rank r's vocab range at index r, and the aux loss)."""
     check_mesh(mesh, cfg)
     s = tokens.shape[1]
-    tokens = tokens.long()
-    x = params["embed"].to(cfg.dtype)[tokens]
+    ring = tp_ring(mesh)
+    x = vocab_parallel_embed(params["embed"].to(cfg.dtype), tokens, ring)
     if not cfg.rope:
         x = x + params["pos"].to(cfg.dtype)[:s][None]
     for blk in params["blocks"]:
@@ -361,8 +397,25 @@ def forward_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
             x = block_body(x, blk, cfg, mesh)
     x = _layernorm(x, params["final_ln"]["scale"].to(x.dtype),
                    params["final_ln"]["bias"].to(x.dtype))
-    logits = torch.einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
+    logits = torch.einsum(
+        "tbsd,tvd->tbsv", tp_copy(x, ring),
+        params["embed"].to(x.dtype).unflatten(0, (tp_size(ring), -1)))
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
+                     cfg: TransformerConfig, mesh: Optional[RankMesh] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (batch, seq) → (logits (batch, seq, vocab), aux loss), on the
+    device the parameters lie on. The aux loss is the MoE load-balance
+    penalty, 0 for the dense FFN (the only one ported). With
+    ``cfg.remat`` each block is recomputed in the backward pass
+    (``torch.utils.checkpoint``, where JAX has ``jax.checkpoint``). The
+    sequence-parallel impls run over ``mesh``'s ``sp`` axis and a ``tp``
+    axis splits the model (see the module note); the tp ranks' vocab
+    ranges of the logits are laid side by side."""
+    logits, aux = _vocab_parallel_forward(params, tokens, cfg, mesh)
+    return logits.permute(1, 2, 0, 3).flatten(2), aux
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor,
@@ -386,24 +439,30 @@ def loss_fn(params: Dict[str, Any], tokens: torch.Tensor,
             cfg: TransformerConfig,
             mesh: Optional[RankMesh] = None) -> torch.Tensor:
     """Next-token cross-entropy of ``tokens`` (batch, seq + 1), mean over
-    every predicted position, plus ``moe_aux_coef`` times the aux loss."""
-    logits, aux = forward_with_aux(params, tokens[:, :-1], cfg, mesh)
-    return token_xent(logits, tokens[:, 1:]) + cfg.moe_aux_coef * aux
+    every predicted position, plus ``moe_aux_coef`` times the aux loss.
+    Over a ``tp`` axis the cross-entropy is vocab-parallel
+    (:func:`~mpi_tpu_torch.parallel.tensor_parallel.vocab_parallel_xent`):
+    the logits are never gathered."""
+    logits, aux = _vocab_parallel_forward(params, tokens[:, :-1], cfg, mesh)
+    ring = tp_ring(mesh)
+    if ring is None:
+        xent = token_xent(logits[0], tokens[:, 1:])
+    else:
+        xent = vocab_parallel_xent(logits, tokens[:, 1:], ring)
+    return xent + cfg.moe_aux_coef * aux
 
 
 # --------------------------------------------------------------------------
 # Training step
 # --------------------------------------------------------------------------
 
-# What a later slice of the port brings, for each option it refuses now.
-_OPTIMIZER_SLICE = "the optimizer slice (optax's rules, ported)"
-
-
 def check_mesh(mesh: Any, cfg: TransformerConfig) -> None:
     """Raise unless ``mesh`` is None or a :class:`RankMesh` this slice
     runs: ``TypeError`` for another object, ``NotImplementedError`` for
     ranks over several distinct devices, ``ValueError`` when its ``tp``
-    axis does not divide the heads (as the JAX package checks)."""
+    axis does not divide the heads (as the JAX package checks), d_ff or
+    the vocabulary (each tp rank reads an equal slice of w1, w2 and the
+    embedding)."""
     if mesh is None:
         return
     if not isinstance(mesh, RankMesh):
@@ -420,34 +479,31 @@ def check_mesh(mesh: Any, cfg: TransformerConfig) -> None:
         raise ValueError(
             f"mpi_tpu_torch: tp={tp} must divide n_heads={cfg.n_heads} and "
             f"kv_heads={cfg.kv_heads} (GQA shards kv heads over tp too)")
+    if cfg.d_ff % tp or cfg.vocab % tp:
+        raise ValueError(
+            f"mpi_tpu_torch: tp={tp} must divide d_ff={cfg.d_ff} and "
+            f"vocab={cfg.vocab} (w1, w2 and the embedding split over tp)")
 
 
 def make_optimizer(optimizer: str = "adamw", learning_rate: float = 1e-3,
                    warmup_steps: int = 0, total_steps: Optional[int] = None
                    ) -> Callable[[List[torch.Tensor]], torch.optim.Optimizer]:
-    """A builder ``leaves -> torch.optim.Optimizer`` for ``optimizer``.
-
-    Only ``"adamw"`` at a constant ``learning_rate`` is ported: the rule of
-    ``optax.adamw``'s defaults (b1 0.9, b2 0.999, eps 1e-8, weight decay
-    1e-4 on every leaf; torch's own default decay is 1e-2). adafactor, sgd
-    and the warmup / cosine schedules raise ``NotImplementedError``."""
-    if optimizer in ("adafactor", "sgd"):
-        raise NotImplementedError(
-            f"mpi_tpu_torch: optimizer={optimizer!r} is not ported yet; it "
-            f"comes with {_OPTIMIZER_SLICE}")
-    if optimizer != "adamw":
+    """A builder ``leaves -> torch.optim.Optimizer`` for ``optimizer``, the
+    JAX package's choices as optax's rules (:mod:`.optimizers`):
+    ``"adamw"`` (b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4 on every
+    leaf; torch's own default decay is 1e-2), ``"adafactor"`` (optax's
+    defaults) or ``"sgd"`` (momentum 0.9). Schedule: with ``total_steps``,
+    linear warmup over ``warmup_steps`` into cosine decay to 10% of the
+    peak at ``total_steps``; with only ``warmup_steps``, linear warmup then
+    constant; otherwise the constant ``learning_rate``."""
+    if optimizer not in ("adamw", "adafactor", "sgd"):
         raise ValueError(f"mpi_tpu_torch: unknown optimizer {optimizer!r}: "
                          f"expected adamw|adafactor|sgd")
-    if warmup_steps or total_steps is not None:
-        raise NotImplementedError(
-            f"mpi_tpu_torch: learning-rate schedules (warmup_steps, "
-            f"total_steps) are not ported yet; they come with "
-            f"{_OPTIMIZER_SLICE}")
+    schedule = learning_rate_schedule(learning_rate, warmup_steps,
+                                      total_steps)
 
     def build(leaves: List[torch.Tensor]) -> torch.optim.Optimizer:
-        return torch.optim.AdamW(leaves, lr=learning_rate,
-                                 betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=1e-4)
+        return build_optimizer(optimizer, leaves, learning_rate, schedule)
 
     return build
 
@@ -512,10 +568,12 @@ class _DataParallel:
     (:class:`~mpi_tpu_torch.parallel.zero.DpLayout`, ``fsdp_specs``'
     dimensions for dp and fsdp, ``zero1_specs``' for zero1), so kernel 6
     folds each value in the same ring order whichever reduction runs, and
-    AdamW is elementwise: where the modes' dimensions agree and every leaf
-    is sharded, they give the same bits. (Plain dp reduces replicated
-    leaves in the same launch as the shards, the others in a launch of
-    their own, which moves the chunks' edges and so the fold orders.)"""
+    AdamW and sgd are elementwise: where the modes' dimensions agree and
+    every leaf is sharded, they give the same bits. (Plain dp reduces
+    replicated leaves in the same launch as the shards, the others in a
+    launch of their own, which moves the chunks' edges and so the fold
+    orders. adafactor is not elementwise: :func:`make_train_parts`
+    refuses it with zero1 or fsdp.)"""
 
     def __init__(self, cfg, mesh, build, grad_accum, mode):
         self.cfg, self.mesh, self.build = cfg, mesh, build
@@ -527,8 +585,9 @@ class _DataParallel:
         subs = [axis_slice(mesh, "dp", r) for r in range(self.dp)]
         self.rank_meshes = [m if m.axis_names else None for m in subs]
 
-    def layout(self, params):
-        specs = sane_param_specs(self.cfg, params, self.mesh)
+    def layout(self, params, specs):
+        """The bucket layout of ``params``, whose tp specs are ``specs``
+        (:func:`sane_param_specs`)."""
         if self.mode == "zero1":  # the moments' specs, matched by shape
             specs = zero1_specs(params, specs, params, self.mesh)
         else:
@@ -544,8 +603,10 @@ class _DataParallel:
             if not x.is_floating_point():
                 raise TypeError(f"mpi_tpu_torch: cannot train a "
                                 f"{x.dtype} parameter")
-        layout = self.layout(params)
-        state = {"params": params, "layout": layout, "mode": self.mode}
+        specs = sane_param_specs(self.cfg, params, self.mesh)
+        layout = self.layout(params, specs)
+        state = {"params": params, "layout": layout, "mode": self.mode,
+                 "mesh": self.mesh, "specs": specs}
         if self.mode == "dp":
             for x in leaves:
                 x.requires_grad_(True)
@@ -711,18 +772,34 @@ def full_params(state: Dict[str, Any]) -> Dict[str, Any]:
         for x, leaf in zip(leaves, layout.leaves)])
 
 
-def rank_state(state: Dict[str, Any], rank: int) -> Dict[str, Any]:
-    """What dp rank ``rank`` holds of a training state: ``{"params",
-    "exp_avg", "exp_avg_sq"}``, each a tree of the parameter tree's
-    layout whose leaves are views of the state's tensors: the full tensor
-    where the rank holds a leaf whole, the rank's piece where it holds a
-    shard. The moments exist from the first step on."""
-    params, opt = state["params"], state["opt"]
-    layout = state.get("layout")
-    leaves = [x for g in _groups(params) for x in tree_leaves(g)]
+def _moment_names(opt: torch.optim.Optimizer) -> List[str]:
+    """The names of the tensors the optimizer keeps per leaf: AdamW's
+    ``exp_avg`` and ``exp_avg_sq``, sgd's ``momentum_buffer``, adafactor's
+    ``v_row``, ``v_col`` and ``v`` (empty before the first step)."""
+    first = next(iter(opt.state.values()), {})
+    return [k for k, v in first.items() if k != "step" and torch.is_tensor(v)]
 
-    def held(x, i, what):
-        dim = layout.leaves[i].dim
+
+def rank_state(state: Dict[str, Any], rank: int,
+               tp_rank: int = 0) -> Dict[str, Any]:
+    """What the rank at dp coordinate ``rank`` and tp coordinate
+    ``tp_rank`` holds of a training state: ``{"params"}`` and one entry per
+    tensor the optimizer keeps per leaf (:func:`_moment_names`; they exist
+    from the first step on), each a tree of the parameter tree's layout
+    whose leaves are views of the state's tensors: the rank's piece of a
+    leaf that dp or tp shards, the leaf whole where neither does. These
+    are the shapes of the JAX package's shards on that rank's device; an
+    optimizer tensor not of its leaf's shape (adafactor's factored
+    moments) is given whole."""
+    params, opt = state["params"], state["opt"]
+    layout, mesh = state.get("layout"), state.get("mesh")
+    leaves = [x for g in _groups(params) for x in tree_leaves(g)]
+    specs = [s for g in _groups(state["specs"]) for s in spec_leaves(g)] \
+        if mesh is not None else [()] * len(leaves)
+    tp = 1 if mesh is None else mesh.shape.get("tp", 1)
+
+    def dp_piece(x, i, what):
+        dim = None if layout is None else layout.leaves[i].dim
         if dim is None or state["mode"] == "dp":
             return x if what == "params" else opt.state[x][what]
         if what == "params":
@@ -731,13 +808,19 @@ def rank_state(state: Dict[str, Any], rank: int) -> Dict[str, Any]:
         moment = opt.state[state["shards"][rank][g]][what]
         return layout.pieces(moment.view(1, -1), i, start)[0]
 
-    if layout is None:  # one device: every rank would hold it all
-        return {what: (params if what == "params" else tree_with_leaves(
-            params, iter([opt.state[x][what] for x in tree_leaves(params)])))
-            for what in ("params", "exp_avg", "exp_avg_sq")}
+    def held(x, i, what):
+        piece = dp_piece(x, i, what)
+        shape = x.shape if layout is None else layout.leaves[i].shape
+        dim = spec_dim(specs[i], "tp")
+        if dim is None or piece.dim() != len(shape) or \
+                piece.shape[dim] != shape[dim]:
+            return piece
+        k = piece.shape[dim] // tp
+        return piece.narrow(dim, tp_rank * k, k)
+
     return {what: _regroup(params, [held(x, i, what)
                                     for i, x in enumerate(leaves)])
-            for what in ("params", "exp_avg", "exp_avg_sq")}
+            for what in ("params", *_moment_names(opt))}
 
 
 def make_train_parts(cfg: TransformerConfig, mesh: Any = None,
@@ -767,8 +850,11 @@ def make_train_parts(cfg: TransformerConfig, mesh: Any = None,
     (:func:`check_mesh`): its ``sp`` axis carries the sequence-parallel
     attention impls, and a ``dp`` axis above 1 makes the step
     data-parallel, with ``zero1`` (optimizer state sharded over dp) or
-    ``fsdp`` (parameters too) as options that need a ``dp`` axis; see the
-    module note."""
+    ``fsdp`` (parameters too) as options that need a ``dp`` axis, and a
+    ``tp`` axis above 1 splits the model over its ranks; see the module
+    note. A state built over a mesh also holds it (``"mesh"``) and the
+    parameters' specs (``"specs"``), from which :func:`rank_state` reads
+    the tp split."""
     if grad_accum < 1:
         raise ValueError(f"mpi_tpu_torch: grad_accum must be >= 1, got "
                          f"{grad_accum}")
@@ -782,6 +868,11 @@ def make_train_parts(cfg: TransformerConfig, mesh: Any = None,
         raise ValueError("mpi_tpu_torch: fsdp subsumes zero1 (optimizer "
                          "state follows the dp-sharded parameters); pass "
                          "only fsdp=True")
+    if optimizer == "adafactor" and (zero1 or fsdp):
+        raise NotImplementedError(
+            "mpi_tpu_torch: optimizer='adafactor' with zero1 or fsdp is not "
+            "ported: its factored moments and block RMS terms are not "
+            "elementwise over the flat dp shards (ROADMAP.md item 13)")
     build = make_optimizer(optimizer, learning_rate, warmup_steps,
                            total_steps)
     if has_dp and mesh.shape["dp"] > 1:
@@ -796,7 +887,11 @@ def make_train_parts(cfg: TransformerConfig, mesh: Any = None,
                     raise TypeError(f"mpi_tpu_torch: cannot train a "
                                     f"{x.dtype} parameter")
                 x.requires_grad_(True)
-            return {"params": params, "opt": build(leaves)}
+            state = {"params": params, "opt": build(leaves)}
+            if mesh is not None:  # what rank_state reads the tp split from
+                state.update(mesh=mesh,
+                             specs=sane_param_specs(cfg, params, mesh))
+            return state
 
         def step(state: Dict[str, Any], tokens: torch.Tensor
                  ) -> Tuple[Dict[str, Any], torch.Tensor]:

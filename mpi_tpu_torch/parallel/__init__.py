@@ -2,8 +2,10 @@
 point-to-point exchange between its ranks, the collectives over them
 (``parallel/collectives.py``, imported as a module as in the JAX package),
 the long-context layer over a mesh's ``sp`` axis: ring attention, Ulysses
-and cache-parallel decode, and the ZeRO-1 / FSDP layouts over its ``dp``
-axis (``parallel/zero.py``, imported as a module); counterpart of
+and cache-parallel decode, the ZeRO-1 / FSDP layouts over its ``dp``
+axis (``parallel/zero.py``, imported as a module), and Megatron's
+reductions over its ``tp`` axis (``parallel/tensor_parallel.py``, imported
+as a module; no JAX twin: GSPMD inserts them there); counterpart of
 ``mpi_tpu/parallel``.
 The ring kernels live in ``mpi_tpu_torch/ops/ring_collectives.py``, as in
 the JAX package."""

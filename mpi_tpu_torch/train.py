@@ -1,4 +1,4 @@
-"""Train the flagship decoder LM for a few AdamW steps on the GPU.
+"""Train the flagship decoder LM for a few optimizer steps on the GPU.
 
 The port's counterpart of the single-device path of ``examples/train.py``,
 at the configuration of ``bench.py``'s ``measure_train_step``: d_model
@@ -16,9 +16,14 @@ rank positions of an ``sp`` mesh whose ranks share the chosen device.
 ``--dp N`` trains data-parallel over N ranks: each computes the gradient
 of its share of the batch and kernel 6 reduces them; ``--zero1`` shards
 the optimizer state over them and ``--fsdp`` the parameters too, as
-``examples/train.py`` offers. ``--dp`` and ``--sp`` make one ``("dp",
-"sp")`` mesh, ranks row-major as ``make_mesh_nd`` lays them out
-(``--dp 1 --sp 1``, the default, means no mesh). The long-context
+``examples/train.py`` offers. ``--tp N`` splits the model Megatron-style
+over N tensor-parallel ranks (heads, d_ff and vocab; kernel 6 runs the tp
+reductions). ``--dp``, ``--sp`` and ``--tp`` make one ``("dp", "sp",
+"tp")`` mesh, ranks row-major as ``make_mesh_nd`` lays them out (all 1,
+the default, means no mesh). ``--optimizer`` takes adamw, adafactor or
+sgd (momentum 0.9), and ``--warmup-steps W`` warms the rate up over W
+steps into cosine decay over the run (``total_steps = --steps``), as
+``examples/train.py`` does. The long-context
 configuration (``bench.py``'s ``measure_long_context``: 4 layers, seq
 8192, batch 1, remat) with zigzag ring attention over 8 ranks is::
 
@@ -29,6 +34,8 @@ Run::
 
     python -m mpi_tpu_torch.train                 # on the CUDA device
     python -m mpi_tpu_torch.train --dp 8 --zero1  # 8 dp ranks, ZeRO-1
+    python -m mpi_tpu_torch.train --tp 8          # 8 tp ranks
+    python -m mpi_tpu_torch.train --optimizer adafactor --warmup-steps 2
     python -m mpi_tpu_torch.train --layers 2 --seq 64 --device cpu
 """
 
@@ -114,26 +121,37 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--fsdp", action="store_true",
                     help="fully shard the parameters over dp "
                          "(ZeRO-3/FSDP; subsumes --zero1)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks on the device (heads, "
+                         "d_ff and vocab split over them)")
+    ap.add_argument("--optimizer", default="adamw",
+                    choices=["adamw", "adafactor", "sgd"])
+    ap.add_argument("--warmup-steps", type=int, default=0,
+                    help="linear LR warmup; with --steps it becomes "
+                         "warmup + cosine decay")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     args = ap.parse_args(argv)
     if args.steps < 2:
         ap.error("--steps must be at least 2: one warm-up, one timed")
-    if args.sp < 1 or args.dp < 1:
-        ap.error("--sp and --dp must be at least 1")
+    if min(args.sp, args.dp, args.tp) < 1:
+        ap.error("--sp, --dp and --tp must be at least 1")
 
     dev = resolve_device(args.device)
     cfg = flagship_train_config(args.layers, args.seq,
                                 attention_impl=args.attention,
                                 remat=args.remat)
     mesh = None
-    if args.dp * args.sp > 1 or args.zero1 or args.fsdp:
-        mesh = RankMesh([dev] * (args.dp * args.sp), ("dp", "sp"),
-                        (args.dp, args.sp))
-    init_state, step = make_train_step(cfg, mesh=mesh,
-                                       grad_accum=args.grad_accum,
-                                       zero1=args.zero1, fsdp=args.fsdp)
+    sizes = (args.dp, args.sp, args.tp)
+    if args.dp * args.sp * args.tp > 1 or args.zero1 or args.fsdp:
+        mesh = RankMesh([dev] * (args.dp * args.sp * args.tp),
+                        ("dp", "sp", "tp"), sizes)
+    init_state, step = make_train_step(
+        cfg, mesh=mesh, grad_accum=args.grad_accum,
+        optimizer=args.optimizer, warmup_steps=args.warmup_steps,
+        total_steps=args.steps if args.warmup_steps else None,
+        zero1=args.zero1, fsdp=args.fsdp)
     state = init_state(torch.Generator().manual_seed(args.seed), dev)
     tokens = torch.from_numpy(np.random.default_rng(args.seed).integers(
         0, cfg.vocab, (args.batch, args.seq + 1))).to(dev)
@@ -141,7 +159,8 @@ def main(argv: Optional[list] = None) -> int:
     name = torch.cuda.get_device_name(dev) if cuda else "cpu"
     print(f"flagship train on {name}: batch={args.batch} seq={args.seq} "
           f"layers={args.layers} attention={args.attention} dp={args.dp} "
-          f"sp={args.sp} zero1={args.zero1} fsdp={args.fsdp} "
+          f"sp={args.sp} tp={args.tp} zero1={args.zero1} fsdp={args.fsdp} "
+          f"optimizer={args.optimizer} warmup_steps={args.warmup_steps} "
           f"remat={args.remat} grad_accum={args.grad_accum}")
 
     _, loss = step(state, tokens)  # warm-up

@@ -211,10 +211,11 @@ def test_indivisible_batch_raises(trees):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"optimizer": "adafactor"}, "optimizer slice"),
-    ({"optimizer": "sgd"}, "optimizer slice"),
-    ({"warmup_steps": 10}, "optimizer slice"),
-    ({"total_steps": 100}, "optimizer slice"),
+    # adafactor's factored moments over zero1's and fsdp's flat dp shards.
+    ({"optimizer": "adafactor", "zero1": True,
+      "mesh": RankMesh(["cpu"] * 2, ("dp",))}, "ROADMAP.md item 13"),
+    ({"optimizer": "adafactor", "fsdp": True,
+      "mesh": RankMesh(["cpu"] * 2, ("dp",))}, "ROADMAP.md item 13"),
     # A mesh whose ranks lie on distinct devices; another object than a
     # RankMesh raises TypeError (checked in the body).
     ({"mesh": RankMesh(["cpu", "cuda:0"], ("sp",))}, "NVLink peer path"),
@@ -240,11 +241,14 @@ def test_sharding_without_a_dp_axis_raises(kwargs):
                          **kwargs)
 
 
-@pytest.mark.parametrize("flags", [[], ["--zero1"], ["--fsdp"]])
+@pytest.mark.parametrize("flags", [
+    [], ["--zero1"], ["--fsdp"], ["--tp", "2"],
+    ["--optimizer", "adafactor", "--warmup-steps", "1"],
+    ["--optimizer", "sgd", "--tp", "2", "--fsdp"]])
 def test_train_cli_data_parallel_on_cpu(flags, capsys):
-    """``python -m mpi_tpu_torch.train --dp 2`` (and with ``--zero1`` or
-    ``--fsdp``) at tiny widths on the CPU: two ranks of a dp mesh, finite
-    losses."""
+    """``python -m mpi_tpu_torch.train --dp 2`` (and with ``--zero1``,
+    ``--fsdp``, ``--tp 2`` or another optimizer and schedule) at tiny
+    widths on the CPU: two ranks of a dp mesh, finite losses."""
     from mpi_tpu_torch import train
 
     assert train.main(["--layers", "1", "--seq", "16", "--batch", "2",

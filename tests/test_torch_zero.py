@@ -306,31 +306,21 @@ def test_rank_zero_gradient_alone_misses_jax(jax_runs, monkeypatch):
 @pytest.mark.parametrize("mode", ["zero1", "fsdp"])
 @pytest.mark.parametrize("mesh_name", list(MESHES))
 def test_rank_shards_have_jax_shapes(jax_runs, mesh_name, mode):
-    """Each rank's moment shard (and, under fsdp, parameter shard) has the
-    shape of JAX's shard on that rank's device. JAX also shards the tp
-    dimensions; the port keeps them whole (tp is the head dimension of the
-    same launches), so a JAX shard's tp dimensions are scaled back by tp."""
+    """What each (dp, tp) coordinate holds, its moment shard (and, under
+    fsdp, parameter shard), has the shape of JAX's shard on that rank's
+    device (the split is even, so on device 0's)."""
     _, _, _, mu_shapes, param_shapes = jax_runs[mesh_name, mode]
     state, _ = _port_run(jax_runs, mesh_name, mode)
-    cfg = TransformerConfig(**MODEL)
     mesh = _port_mesh(mesh_name)
-    tp = mesh.shape.get("tp", 1)
-    full = full_params(state)
-    specs = tzero.spec_leaves(sane_param_specs(cfg, full, mesh))
-
-    def untp(shape, spec):
-        return tuple(d * tp if e == "tp" else d
-                     for d, e in zip(shape, spec + (None,) * len(shape)))
-
     for r in range(mesh.shape["dp"]):
-        held = rank_state(state, r)
-        for what, want_tree in (("exp_avg", mu_shapes),
-                                ("params", param_shapes)):
-            if what == "params" and mode == "zero1":
-                continue  # zero1 keeps the parameters whole
-            for spec, (got, want) in zip(specs, _walk(held[what],
-                                                      want_tree)):
-                assert tuple(got.shape) == untp(want, spec), (what, spec)
+        for t in range(mesh.shape.get("tp", 1)):
+            held = rank_state(state, r, t)
+            for what, want_tree in (("exp_avg", mu_shapes),
+                                    ("params", param_shapes)):
+                if what == "params" and mode == "zero1":
+                    continue  # zero1 keeps the parameters whole
+                for got, want in _walk(held[what], want_tree):
+                    assert tuple(got.shape) == want, (what, r, t)
 
 
 def test_sharded_state_holds_one_dp_th():
