@@ -46,7 +46,17 @@ port's paths and checks what comes out:
   single-device step and against a faulty control, every copy the kernel
   writes bitwise the same; adafactor and sgd on the warmup-cosine schedule
   on one device and under tp 8; and a (dp 2, sp 2, tp 2) step with zigzag
-  ring attention, FSDP against plain dp bit for bit;
+  ring attention, FSDP against plain dp bit for bit; adafactor under
+  ZeRO-1 and FSDP against plain dp bit for bit;
+* pipeline-parallel training: the flagship over 4 pp stages of a
+  ``("pp",)`` mesh on the card, 4 microbatches (the flash kernels in each
+  stage, the send/receive kernel for each hop), with and without
+  ``remat_stage``, and over 8 stages × 8 microbatches, held against the
+  single-device step and against a faulty control;
+* compiled halos: 50 Jacobi sweeps of a 16384² float32 grid over a (2, 4)
+  ``("row", "col")`` mesh, Dirichlet and periodic, and of a rod of 2^28
+  cells over 8 ranks (the send/receive kernel for each halo), bitwise the
+  dense sweep of the whole tensor;
 
 then times the paths and the kernels, and prints:
 
@@ -54,7 +64,9 @@ then times the paths and the kernels, and prints:
   kernel it replaces, its launches on its path (kernels 5-7: in the
   driver's phase; kernels 1-4 and 7 also ``long_context_launches``, on the
   long-context phase; every kernel ``sharded_launches``, on the
-  data-parallel phase, and ``tp_launches``, on the tensor-parallel phase),
+  data-parallel phase, ``tp_launches``, on the tensor-parallel phase,
+  ``pipeline_launches``, on the pipeline phase, and ``halo_launches``, on
+  the halo phase),
   its largest error against the plain version, and
   its time beside its bound, the plain version's time and one PyTorch
   library call's time;
@@ -206,6 +218,35 @@ TP_OPT_LR = 1e-2
 # The composition step: 2 layers, seq 2048, batch 4, zigzag_flash over a
 # (dp 2, sp 2, tp 2) mesh, fsdp against plain dp.
 COMPOSE = dict(layers=2, seq=2048, batch=4, steps=2)
+# Pipeline-parallel training (phase 11): the flagship over PP_STAGES pp
+# ranks of a ("pp",) mesh on the card (2 layers a stage), PP_MICRO
+# microbatches of 2 rows (the JAX package's default count), against phase
+# 9's single-device step from the same seeded state and batch.
+PP_STAGES = 4
+PP_MICRO = 4
+PP_STEPS = 3
+PP_TIMED_STEPS = 3
+# pp 4 against one device: the loss gap relative to one device's loss,
+# and the parameters' gap ||p_pp - p_one|| / ||p_one - p_0|| as in
+# DP_PARAM_REL. A stage runs 2 rows through cuBLAS and the flash kernels
+# where one device runs 8, so bf16 rounds at other points, and AdamW's
+# first update is about lr·sign(g): the causes of plain dp's gaps, so the
+# same values, set before the first run on the card. Measured (NVIDIA
+# H100 80GB HBM3, 700 W): loss gaps 0, 2.3e-6, 1.0e-5 and a parameter gap
+# of 0.0183 (remat_stage the same bits; pp 8 x 8's first loss exact); the
+# faulty control (a stage one step late) missed by 1.4e-2 to 4.1e-2 in the
+# loss and 1.25 in the parameters. PP_LOSS_RTOL sits 10 times over the
+# largest sound gap and 138 times under the control's least, PP_PARAM_REL
+# 5.5 times over and 12 times under, and the phase checks that the
+# control still falls outside both.
+PP_LOSS_RTOL = 1e-4
+PP_PARAM_REL = 1e-1
+# Compiled halos (phase 12): a HALO_GRID² float32 grid over (2, 4) ranks
+# and a rod of HALO_ROD float32 cells over 8, 1 GiB each, HALO_SWEEPS
+# Jacobi sweeps, held bit for bit against the dense sweep.
+HALO_GRID = 16384
+HALO_ROD = 2 ** 28
+HALO_SWEEPS = 50
 
 N_REQUESTS = 3
 BATCH = 8
@@ -1556,6 +1597,30 @@ def long_context_slice(dev, gen, card):
     return launches, errs
 
 
+def clone_tree(tree):
+    """A detached copy of a parameter tree (dicts and lists of tensors)."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [clone_tree(v) for v in tree]
+    return tree.detach().clone()
+
+
+def rel_gap(got, ref, p0):
+    """||got - ref|| / ||ref - p0|| over every leaf: the parameters' gap
+    relative to how far the steps moved them from ``p0``."""
+    num = sum(float(((a.double() - b.double()) ** 2).sum())
+              for a, b in zip(got, ref))
+    den = sum(float(((b.double() - c.double()) ** 2).sum())
+              for b, c in zip(ref, p0))
+    return (num / den) ** 0.5
+
+
+def loss_gaps(got, ref):
+    """Each loss's gap relative to its reference."""
+    return [abs(a - b) / abs(b) for a, b in zip(got, ref)]
+
+
 def dp_launches(mode, n, layers, rest, remat=False):
     """Launches of kernels 1, 2, 3, 5 and 6 in one training step, counted
     from the code (``models/transformer.py``, ``_DataParallel``): each of
@@ -1591,9 +1656,12 @@ def dp_slice(dev, card):
     steps against fsdp without it, losses and parameters bit for bit,
     kernels 5 and 6 against their plain versions at this phase's shapes,
     bitwise, their times there, and ms per step of (a)-(d) with a profile
-    of one step each. Returns ({kernel: launches on this phase's main path,
-    (b)-(d)}, {kernel: max |kernel - plain|}, (a)'s (losses, parameters
-    after DP_STEPS steps, ms per step)) for phase 10."""
+    of one step each. (f): adafactor at TP_OPT_LR in plain dp, zero1 and
+    fsdp, DP_STEPS steps each, zero1 and fsdp bitwise plain dp, and the
+    bytes a rank holds. Returns ({kernel: launches on this phase's main
+    path, (b)-(d) and (f)}, {kernel: max |kernel - plain|}, (a)'s (losses,
+    parameters after DP_STEPS steps, ms per step)) for phases 10 and
+    11."""
     import importlib
 
     import numpy as np
@@ -1622,13 +1690,6 @@ def dp_slice(dev, card):
     def counts():
         return [wrappers[k].launches for k in names]
 
-    def clone(tree):
-        if isinstance(tree, dict):
-            return {k: clone(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [clone(v) for v in tree]
-        return tree.detach().clone()
-
     n = DP_RANKS
     cfg = flagship_train_config()
     layers = cfg.n_layers
@@ -1640,13 +1701,15 @@ def dp_slice(dev, card):
              "fsdp": {"fsdp": True}}
 
     def run(mode, c=cfg, m=mesh, p0=params0, toks=tokens, steps=DP_STEPS,
-            want=None):
+            want=None, opt=None):
         """``steps`` steps of ``mode`` from a copy of ``p0``: (step, state,
         losses); each step's launches of kernels 1-3, 5 and 6 (and 7, with
-        ``want`` of six) must equal ``want`` or dp_launches."""
+        ``want`` of six) must equal ``want`` or dp_launches. ``opt`` is
+        make_train_step's optimizer keywords (AdamW at 1e-3 without)."""
         init_state, step = make_train_step(
-            c, mesh=None if mode == "one" else m, **flags[mode])
-        state = init_state.from_params(clone(p0))
+            c, mesh=None if mode == "one" else m, **flags[mode],
+            **(opt or {}))
+        state = init_state.from_params(clone_tree(p0))
         rest = state["layout"].rest if "layout" in state else 0
         per_step = want or dp_launches(mode, n, c.n_layers, rest)
         losses = []
@@ -1667,23 +1730,55 @@ def dp_slice(dev, card):
 
     p0 = leaves({"params": params0})
 
-    def rel_gap(got, ref):
-        """||got - ref|| / ||ref - p_0|| over every leaf."""
-        num = sum(float(((a.double() - b.double()) ** 2).sum())
-                  for a, b in zip(got, ref))
-        den = sum(float(((b.double() - c.double()) ** 2).sum())
-                  for b, c in zip(ref, p0))
-        return (num / den) ** 0.5
+    def nbytes(tree):
+        return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
 
     steps, states, losses = {}, {}, {}
     steps["one"], states["one"], losses["one"] = run("one")
-    # ---- the main path: (b)-(d), counted alone
+    # ---- the main path: (b)-(d), then (f) with adafactor, counted alone
     for w in wrappers.values():
         w.launches = 0
     for mode in ("dp", "zero1", "fsdp"):
         steps[mode], states[mode], losses[mode] = run(mode)
 
+    # ---- (f) adafactor at TP_OPT_LR in plain dp, zero1 and fsdp ----------
+    # Every leaf of the flagship is sharded at dp 8, and the rule sees the
+    # whole leaf and the whole reduced gradient put back together from the
+    # ranks' pieces: plain dp's values, so the design gives zero1 and fsdp
+    # plain dp's bits, as with AdamW.
+    fac = {}
+    for mode in ("dp", "zero1", "fsdp"):
+        _, fstate, flosses = run(mode, opt={"optimizer": "adafactor",
+                                            "learning_rate": TP_OPT_LR})
+        held = [rank_state(fstate, r) for r in range(n)]
+        fac[mode] = (flosses, [x.clone() for x in leaves(fstate)],
+                     [nbytes(h["v_row"]) + nbytes(h["v_col"]) +
+                      nbytes(h["v"]) for h in held],
+                     [nbytes(h["params"]) for h in held])
+        del fstate, held
+        torch.cuda.empty_cache()
     sharded = dict(zip(names, counts()))
+    for mode in ("zero1", "fsdp"):
+        check(fac[mode][0] == fac["dp"][0] and all(
+            bits_equal(a, b) for a, b in zip(fac[mode][1], fac["dp"][1])),
+            f"adafactor {mode}: losses {fac[mode][0]} or parameters differ "
+            f"from plain dp's {fac['dp'][0]} in their bits")
+        check(fac[mode][2] == [fac[mode][2][0]] * n,
+              f"adafactor {mode}: ranks hold unequal moment bytes "
+              f"{fac[mode][2]}")
+    check(fac["dp"][0][-1] < fac["dp"][0][0],
+          f"adafactor plain dp loss did not fall: {fac['dp'][0]}")
+    print(f"(f) adafactor (rate {TP_OPT_LR}), {n} dp ranks, {DP_STEPS} "
+          f"steps: losses plain dp {fac['dp'][0]}, zero1 "
+          f"{fac['zero1'][0]}, fsdp {fac['fsdp'][0]}; zero1 and fsdp "
+          f"bitwise plain dp's losses and parameters (the design gives "
+          f"it: every leaf sharded, the rule on plain dp's whole leaves). "
+          f"Bytes a rank holds: moments plain dp {fac['dp'][2][0]}, zero1 "
+          f"{fac['zero1'][2][0]}, fsdp {fac['fsdp'][2][0]} (the factored "
+          f"moments whole, the full moments of the norms a rank's piece); "
+          f"parameters plain dp {fac['dp'][3][0]}, zero1 "
+          f"{fac['zero1'][3][0]}, fsdp {fac['fsdp'][3][0]}")
+    del fac
 
     # ---- (e) the faulty control ------------------------------------------
     def rank_zero(contribs, ring, op="sum"):
@@ -1707,8 +1802,8 @@ def dp_slice(dev, card):
                 for mode in ("dp", "control")}
     ctrl_gap = [abs(a - b) / abs(b) for a, b in zip(losses["control"],
                                                     losses["dp"])]
-    param_gap = rel_gap(full["dp"], full["one"])
-    ctrl_param_gap = rel_gap(ctrl, full["dp"])
+    param_gap = rel_gap(full["dp"], full["one"], p0)
+    ctrl_param_gap = rel_gap(ctrl, full["dp"], p0)
     print(f"data-parallel flagship, {n} dp ranks on the card ({DP_STEPS} "
           f"steps, batch 8, seq {cfg.max_seq - 1}): losses (a) one device "
           f"{losses['one']}, (b) dp {losses['dp']}, (c) zero1 "
@@ -1748,9 +1843,6 @@ def dp_slice(dev, card):
     del ctrl, full
 
     # ---- memory per rank -------------------------------------------------
-    def nbytes(tree):
-        return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
-
     held = {mode: [rank_state(states[mode], r) for r in range(n)]
             for mode in ("dp", "zero1", "fsdp")}
     moments = {mode: [nbytes(h["exp_avg"]) + nbytes(h["exp_avg_sq"])
@@ -1781,7 +1873,7 @@ def dp_slice(dev, card):
     del rstate
     remat_gap = [abs(a - b) / abs(b) for a, b in zip(rlosses,
                                                      losses["fsdp"])]
-    remat_param_gap = rel_gap(rfull, ffull)
+    remat_param_gap = rel_gap(rfull, ffull, p0)
     remat_bits = rlosses == losses["fsdp"] and all(
         bits_equal(a, b) for a, b in zip(rfull, ffull))
     print(f"fsdp with remat, {DP_STEPS} steps: losses {rlosses} (without "
@@ -1950,13 +2042,6 @@ def tp_slice(dev, card, one=None):
     def counts():
         return [wrappers[k].launches for k in names]
 
-    def clone(tree):
-        if isinstance(tree, dict):
-            return {k: clone(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [clone(v) for v in tree]
-        return tree.detach().clone()
-
     n = TP_RANKS
     cfg = flagship_train_config()
     layers = cfg.n_layers
@@ -1971,7 +2056,7 @@ def tp_slice(dev, card, one=None):
         state, losses); each step's launches of the first len(want) of
         kernels 1-3, 5, 6, 7 must equal ``want``."""
         init_state, step = make_train_step(c, mesh=m, **kw)
-        state = init_state.from_params(clone(p0))
+        state = init_state.from_params(clone_tree(p0))
         losses = []
         for i in range(steps):
             before = counts()
@@ -1988,17 +2073,6 @@ def tp_slice(dev, card, one=None):
         return [x.detach() for x in tree_leaves(full_params(state))]
 
     p0 = leaves({"params": params0})
-
-    def rel_gap(got, ref):
-        """||got - ref|| / ||ref - p_0|| over every leaf."""
-        num = sum(float(((a.double() - b.double()) ** 2).sum())
-                  for a, b in zip(got, ref))
-        den = sum(float(((b.double() - c.double()) ** 2).sum())
-                  for b, c in zip(ref, p0))
-        return (num / den) ** 0.5
-
-    def loss_gap(got, ref):
-        return [abs(a - b) / abs(b) for a, b in zip(got, ref)]
 
     def opt_bytes(state):
         return sum(t.numel() * t.element_size()
@@ -2113,16 +2187,16 @@ def tp_slice(dev, card, one=None):
     torch.cuda.empty_cache()
 
     # ---- agreement ---------------------------------------------------------
-    gaps = {"(b)": (loss_gap(losses_b, one_losses),
-                    rel_gap(full_b, one_leaves)),
-            "(c)": (loss_gap(losses_c, one_losses),
-                    rel_gap(ctrl, one_leaves)),
-            "(b) bf16 partials": (loss_gap(losses_h, one_losses),
-                                  rel_gap(half, one_leaves))}
+    gaps = {"(b)": (loss_gaps(losses_b, one_losses),
+                    rel_gap(full_b, one_leaves, p0)),
+            "(c)": (loss_gaps(losses_c, one_losses),
+                    rel_gap(ctrl, one_leaves, p0)),
+            "(b) bf16 partials": (loss_gaps(losses_h, one_losses),
+                                  rel_gap(half, one_leaves, p0))}
     for name in ("adafactor", "sgd"):
         got, ref = opt_runs[name, "tp"], opt_runs[name, "one"]
-        gaps[f"(d) {name}"] = (loss_gap(got[0], ref[0]),
-                               rel_gap(got[1], ref[1]))
+        gaps[f"(d) {name}"] = (loss_gaps(got[0], ref[0]),
+                               rel_gap(got[1], ref[1], p0))
     print(f"tensor-parallel flagship, {n} tp ranks on the card ({TP_STEPS} "
           f"steps, batch 8, seq {cfg.max_seq - 1}): losses (a) one device "
           f"{one_losses}, (b) tp 8 {losses_b}, (c) control {losses_c}, (b) "
@@ -2211,6 +2285,358 @@ def tp_slice(dev, card, one=None):
     print(f"tensor-parallel phase launches (main path: (b), (d) and (e)): "
           f"{main_counts}")
     return main_counts, errs
+
+
+def pp_launches(layers, micro, stages, remat=False):
+    """Launches of kernels 1, 2, 3 and 7 in one pipelined training step,
+    counted from the code (``parallel/pipeline.py``,
+    ``models/pipeline_lm.py``): every microbatch runs every layer once
+    (kernel 1 again in remat's replay, kernels 2 and 3 in the backward),
+    and the schedule hops M + S − 2 times forward and as many backward."""
+    replay = 2 if remat else 1
+    hops = micro + stages - 2
+    return [micro * layers * replay, micro * layers, micro * layers,
+            2 * hops]
+
+
+def pp_slice(dev, card, one):
+    """Phase 11: pipeline-parallel training of the flagship (8 layers, seq
+    1024, batch 8, bf16 over float32 masters, flash attention, AdamW at lr
+    1e-3) over a ``("pp",)`` mesh of PP_STAGES ranks on the card (2 layers
+    a stage, PP_MICRO microbatches of 2 rows), from the seeded parameters
+    of phase 9's single-device step, handed in as ``one`` (losses,
+    parameters after DP_STEPS steps, ms per step; run here when None):
+    (a) pp 4, PP_STEPS
+    steps; (b) the same with ``remat_stage``; (c) pp 8 × 8 microbatches (1
+    layer and 1 row a stage) for one step; (d) a faulty control, (a) with a
+    hop that hands each stage the activation of two steps back, so stage
+    s + 1 takes its microbatch one step late. Checks, each raising: every
+    step's launches of kernels 1-3 and 7 against pp_launches; (a) and (b)
+    against one device within PP_LOSS_RTOL (losses) and PP_PARAM_REL
+    (parameters after PP_STEPS steps), (c)'s loss against one device's
+    first; the control outside both; falling losses. Then (a)'s ms per
+    step over PP_TIMED_STEPS steps (CUDA events) and the host's enqueue,
+    beside one device's, and a profile of one step. Returns {kernel:
+    launches on this phase's main path, (a)-(c)}."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from mpi_tpu_torch.models import (init_params,
+                                      make_pipelined_train_step,
+                                      make_train_step, stack_block_params)
+    from mpi_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
+                                             flash_fwd)
+    from mpi_tpu_torch.parallel import make_mesh, sendrecv
+    from mpi_tpu_torch.parallel.zero import tree_leaves
+    from mpi_tpu_torch.train import flagship_train_config
+
+    pmod = importlib.import_module("mpi_tpu_torch.parallel.pipeline")
+    wrappers = {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
+                "flash_bwd_dkv": flash_bwd_dkv, "sendrecv": sendrecv}
+    names = list(wrappers)
+
+    def counts():
+        return [wrappers[k].launches for k in names]
+
+    cfg = flagship_train_config()
+    layers = cfg.n_layers
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (8, cfg.max_seq))).to(dev)
+    params0 = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    if one is None:  # this phase alone: its own single-device steps
+        init_state, step = make_train_step(cfg)
+        ostate = init_state.from_params(clone_tree(params0))
+        one = ([float(step(ostate, tokens)[1]) for _ in range(PP_STEPS)],
+               [x.detach() for x in tree_leaves(ostate["params"])], None)
+        del ostate
+    one_losses, one_leaves, one_ms = one
+    p0 = [x.detach() for x in tree_leaves(params0)]
+
+    def flat(params):
+        """A pipelined tree's leaves in init_params' order (the blocks
+        unstacked), as one_leaves holds them."""
+        stages = tree_leaves(params["stages"])
+        blocks = [[x.flatten(0, 1)[i] for x in stages]
+                  for i in range(layers)]
+        return [x.detach() for k in params0 for x in (
+            [y for b in blocks for y in b] if k == "blocks"
+            else tree_leaves(params[k]))]
+
+    def run(label, stages, micro, steps, want, **kw):
+        mesh = make_mesh(axis="pp", devices=[dev] * stages)
+        init_state, step = make_pipelined_train_step(
+            cfg, mesh, microbatches=micro, **kw)
+        state = init_state.from_params(
+            stack_block_params(clone_tree(params0), stages))
+        losses = []
+        for i in range(steps):
+            before = counts()
+            state, loss = step(state, tokens)
+            got = [a - b for a, b in zip(counts(), before)]
+            check(got == want,
+                  f"{label} step {i}: kernels {names} launched {got} "
+                  f"times, want {want} (counted from the code)")
+            losses.append(float(loss))
+        check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+        return step, state, losses
+
+    # ---- the main path: (a)-(c), counted alone ---------------------------
+    for w in wrappers.values():
+        w.launches = 0
+    want_a = pp_launches(layers, PP_MICRO, PP_STAGES)
+    step_a, state_a, losses_a = run("(a) pp 4", PP_STAGES, PP_MICRO,
+                                    PP_STEPS, want_a)
+    full_a = flat(state_a["params"])
+    _, rstate, losses_r = run(
+        "(b) pp 4 remat_stage", PP_STAGES, PP_MICRO, PP_STEPS,
+        pp_launches(layers, PP_MICRO, PP_STAGES, remat=True),
+        remat_stage=True)
+    full_r = flat(rstate["params"])
+    del rstate
+    _, _, losses_8 = run("(c) pp 8 x 8", 8, 8, 1, pp_launches(layers, 8, 8))
+    main_counts = dict(zip(names, counts()))
+    torch.cuda.empty_cache()
+
+    # ---- (d) the faulty control: each stage one step late ------------------
+    real = pmod.ring_shift
+    hops = PP_MICRO + PP_STAGES - 2
+    held = []
+
+    def late(y, ring):
+        if len(held) == hops:  # a new pipeline call
+            held.clear()
+        held.append(y)
+        return real(held[-2] if len(held) > 1 else torch.zeros_like(y),
+                    ring)
+
+    pmod.ring_shift = late
+    try:  # the first hop of a call sends zeros: no backward hop for it
+        _, cstate, losses_c = run("(d) control", PP_STAGES, PP_MICRO,
+                                  PP_STEPS, want_a[:3] + [want_a[3] - 1])
+    finally:
+        pmod.ring_shift = real
+    full_c = flat(cstate["params"])
+    del cstate
+    held.clear()
+    torch.cuda.empty_cache()
+
+    # ---- agreement ---------------------------------------------------------
+    gaps = {label: (loss_gaps(ls, one_losses),
+                    rel_gap(full, one_leaves, p0))
+            for label, ls, full in (("(a)", losses_a, full_a),
+                                    ("(b)", losses_r, full_r),
+                                    ("(d)", losses_c, full_c))}
+    gap_8 = loss_gaps(losses_8, one_losses[:1])
+    remat_bits = losses_r == losses_a and all(
+        bits_equal(a, b) for a, b in zip(full_r, full_a))
+    print(f"pipeline-parallel flagship, {PP_STAGES} pp ranks on the card "
+          f"({PP_MICRO} microbatches of {8 // PP_MICRO} rows, {PP_STEPS} "
+          f"steps, seq {cfg.max_seq - 1}): losses one device {one_losses}, "
+          f"(a) pp 4 {losses_a}, (b) remat_stage {losses_r} (bitwise (a)'s "
+          f"losses and parameters: {remat_bits}), (c) pp 8 x 8 {losses_8}, "
+          f"(d) control {losses_c}")
+    for label, (lg, pg) in gaps.items():
+        print(f"{label} against one device: relative loss gaps {lg} (rtol "
+              f"{PP_LOSS_RTOL}), parameter gap ||p - p_one|| / ||p_one - "
+              f"p_0|| {pg!r} (limit {PP_PARAM_REL})")
+    print(f"(c) pp 8 x 8 first loss against one device's: {gap_8} (rtol "
+          f"{PP_LOSS_RTOL})")
+    for label in ("(a)", "(b)"):
+        lg, pg = gaps[label]
+        check(max(lg) <= PP_LOSS_RTOL and pg <= PP_PARAM_REL,
+              f"{label}: loss gaps {lg} or parameter gap {pg} to one device "
+              f"outside rtol {PP_LOSS_RTOL} / limit {PP_PARAM_REL}")
+    check(gap_8[0] <= PP_LOSS_RTOL,
+          f"(c) pp 8 x 8: first loss gap {gap_8} outside {PP_LOSS_RTOL}")
+    lg, pg = gaps["(d)"]
+    check(max(lg) > PP_LOSS_RTOL and pg > PP_PARAM_REL,
+          f"control (a stage one step late): loss gaps {lg} or parameter "
+          f"gap {pg} inside rtol {PP_LOSS_RTOL} / limit {PP_PARAM_REL}")
+    for label, ls in (("(a)", losses_a), ("(b)", losses_r)):
+        check(ls[-1] < ls[0], f"{label} loss did not fall: {ls}")
+    del full_a, full_r, full_c
+
+    # ---- times ------------------------------------------------------------
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    host = time.perf_counter()
+    for _ in range(PP_TIMED_STEPS):
+        step_a(state_a, tokens)
+    host = (time.perf_counter() - host) * 1e3 / PP_TIMED_STEPS
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / PP_TIMED_STEPS
+    print(f"(a) pp 4: {ms!r} ms per step (CUDA events over {PP_TIMED_STEPS} "
+          f"steps after {PP_STEPS}), host enqueue {host!r} ms per step; one "
+          f"device {one_ms!r} ms per step (phase 9)  [{card}]")
+    prof = profile_steps(lambda: step_a(state_a, tokens), 1, "(a) pp 4", ms,
+                         card)
+    if prof is not None:
+        g = prof["groups"]
+        print(f"(a) pp 4: kernels 1-3 "
+              f"{g.get('flash attention kernels 1-3', (0, 0))}, kernel 7 "
+              f"{g.get('send/receive kernel 7', (0, 0))} (ms, launches) a "
+              f"step; device busy share {prof['busy']!r}; "
+              f"{prof['launches']!r} launches a step  [{card}]")
+    del state_a
+    torch.cuda.empty_cache()
+    print(f"pipeline phase launches (main path: (a)-(c)): {main_counts}; "
+          f"per step, counted from the code: (a) {want_a}, (b) "
+          f"{pp_launches(layers, PP_MICRO, PP_STAGES, remat=True)}, (c) "
+          f"{pp_launches(layers, 8, 8)}")
+    return main_counts
+
+
+def halo_slice(dev, card):
+    """Phase 12: compiled halos at a real size. (a) 5-point Jacobi over a
+    HALO_GRID² float32 grid (1 GiB) on a ``("row", "col")`` mesh of (2, 4)
+    ranks on the card, HALO_SWEEPS sweeps, Dirichlet 0 and periodic; (b)
+    3-point Jacobi over a rod of HALO_ROD float32 cells (1 GiB) on 8 ranks,
+    HALO_SWEEPS sweeps, Dirichlet 0. Each must equal the dense sweep of the
+    whole tensor on the card bit for bit (the same float32 neighbours
+    added in the same order), and launch kernel 7 four times a 2-D sweep
+    and twice a 1-D sweep. Reports ms a sweep against the dense sweep's,
+    and kernel 7 against its plain version (bitwise), its time, its bound
+    and one ``index_select``'s at the pipeline's hop, (4, 2, 1024, 1024)
+    bf16, and at the halo edges. Returns ({"sendrecv": launches on this
+    phase's main path, (a)-(b)}, max |kernel 7 - plain|)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mpi_tpu_torch.parallel import (RankMesh, jacobi_step_1d,
+                                        jacobi_step_2d, make_mesh, sendrecv,
+                                        sendrecv_plain)
+    from mpi_tpu_torch.parallel.halo import _pattern
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rows, cols = 2, 4
+    mesh2 = RankMesh([dev] * 8, ("row", "col"), (rows, cols))
+    mesh1 = make_mesh(devices=[dev] * 8)
+
+    def dense_2d(u, periodic):
+        p = torch.cat([u[-1:], u, u[:1]], 0) if periodic else \
+            F.pad(u, (0, 0, 1, 1))
+        p = torch.cat([p[:, -1:], p, p[:, :1]], 1) if periodic else \
+            F.pad(p, (1, 1))
+        return (p[:-2, 1:-1] + p[2:, 1:-1] + p[1:-1, :-2]
+                + p[1:-1, 2:]) * 0.25
+
+    def dense_1d(u):
+        p = F.pad(u, (1, 1))
+        return (p[:-2] + p[2:]) * 0.5
+
+    def blocks_2d(u):
+        bi, bj = u.shape[0] // rows, u.shape[1] // cols
+        return u.reshape(rows, bi, cols, bj).transpose(1, 2).reshape(
+            rows * cols, bi, bj)
+
+    def grid_2d(b):
+        bi, bj = b.shape[1:]
+        return b.reshape(rows, cols, bi, bj).transpose(1, 2).reshape(
+            rows * bi, cols * bj)
+
+    def sweeps(fn, u):
+        """HALO_SWEEPS sweeps of ``fn``: (result, device ms a sweep)."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(HALO_SWEEPS):
+            u = fn(u)
+        end.record()
+        torch.cuda.synchronize()
+        return u, start.elapsed_time(end) / HALO_SWEEPS
+
+    cases = (("2-D", HALO_GRID, False), ("2-D", HALO_GRID, True),
+             ("1-D", HALO_ROD, False))
+    sendrecv.launches = 0  # the main path: (a) and (b), counted alone
+    results = []
+    for dims, size, periodic in cases:
+        if dims == "2-D":
+            u0 = torch.randn(size, size, generator=gen, device=dev)
+            want, dense_ms = sweeps(lambda u: dense_2d(u, periodic), u0)
+            before = sendrecv.launches
+            got, halo_ms = sweeps(lambda b: jacobi_step_2d(
+                b, mesh2, periodic=periodic), blocks_2d(u0))
+            got = grid_2d(got)
+            per_sweep = 4
+        else:
+            u0 = torch.randn(size, generator=gen, device=dev)
+            want, dense_ms = sweeps(dense_1d, u0)
+            before = sendrecv.launches
+            got, halo_ms = sweeps(lambda b: jacobi_step_1d(
+                b, mesh1, periodic=periodic), u0.reshape(8, -1))
+            got = got.reshape(-1)
+            per_sweep = 2
+        launches = (sendrecv.launches - before) / HALO_SWEEPS
+        label = (f"{dims} {tuple(u0.shape)} float32 "
+                 f"{'periodic' if periodic else 'Dirichlet 0'}")
+        check(bool(torch.isfinite(got).all()), f"{label}: non-finite values")
+        check(bits_equal(got, want),
+              f"{label}: {HALO_SWEEPS} halo sweeps differ from the dense "
+              f"sweeps by up to {max_abs_diff(got, want)}")
+        check(launches == per_sweep,
+              f"{label}: kernel 7 launched {launches} times a sweep, want "
+              f"{per_sweep}")
+        ranks = "(2, 4) row x col" if dims == "2-D" else "8"
+        print(f"halo {label} over {ranks} ranks, {HALO_SWEEPS} sweeps: "
+              f"bitwise the dense sweep's; "
+              f"{halo_ms!r} ms a sweep against the dense sweep's "
+              f"{dense_ms!r} (CUDA events); kernel 7 {launches!r} launches "
+              f"a sweep  [{card}]")
+        results.append((label, halo_ms, dense_ms))
+        del u0, want, got
+        torch.cuda.empty_cache()
+    main_counts = {"sendrecv": sendrecv.launches}
+
+    # ---- kernel 7 at the pipeline's hop and at the halo edges ------------
+    err = 0.0
+    hop = torch.randn(PP_STAGES, 8 // PP_MICRO, 1024, 1024, generator=gen,
+                      device=dev).to(torch.bfloat16)
+    rows_edge = torch.randn(8, 1, HALO_GRID // cols, generator=gen,
+                            device=dev)
+    cols_edge = torch.randn(8, HALO_GRID // rows, 1, generator=gen,
+                            device=dev)
+    ring = [(r, (r + 1) % PP_STAGES) for r in range(PP_STAGES)]
+    senders = torch.tensor([(r - 1) % PP_STAGES for r in range(PP_STAGES)],
+                           device=dev)
+    hop_mesh = make_mesh(axis="pp", devices=[dev] * PP_STAGES)
+    shapes = [("the pipeline's hop", hop, hop_mesh, ring, senders)]
+    for axis, edge in (("row", rows_edge), ("col", cols_edge)):
+        pairs, _ = _pattern(mesh2, axis, 1, False)
+        src = torch.zeros(8, dtype=torch.long, device=dev)
+        for a, b in pairs:
+            src[b] = a
+        shapes.append((f"a 2-D {axis} edge", edge, mesh2, pairs, src))
+    pairs, _ = _pattern(mesh1, "rank", 1, False)
+    src = torch.tensor([max(r - 1, 0) for r in range(8)], device=dev)
+    shapes.append(("a 1-D edge", cols_edge[:, :1, 0].contiguous(), mesh1,
+                   pairs, src))
+    for label, x, m, perm, src in shapes:
+        got = sendrecv(x, m, perm)
+        ref = sendrecv_plain(x, perm)
+        torch.cuda.synchronize()
+        check(bits_equal(got, ref), f"kernel 7 at {label} "
+                                    f"{tuple(x.shape)} differs from its "
+                                    f"plain version")
+        err = max(err, max_abs_diff(got, ref))
+        moved = 2 * x.numel() * x.element_size()
+        k_ms = kernel_ms(lambda y: sendrecv(y, m, perm), [(x,)], 50)
+        p_ms = kernel_ms(lambda y: sendrecv_plain(y, perm), [(x,)], 20)
+        l_ms = kernel_ms(lambda y: y.index_select(0, src), [(x,)], 50)
+        b_ms, b_by = bound(moved, 0, x.dtype)
+        print(f"kernel 7 at {label} {tuple(x.shape)} {x.dtype}, bitwise "
+              f"plain: {k_ms * 1e3!r} us against a {b_ms * 1e3!r} us bound "
+              f"({b_by}), plain {p_ms * 1e3!r} us, index_select "
+              f"{l_ms * 1e3!r} us  [{card}]")
+    del hop, rows_edge, cols_edge
+    torch.cuda.empty_cache()
+    print(f"halo phase launches (main path: (a)-(b)): {main_counts}")
+    return main_counts, err
 
 
 def decode_times(dev, gen, card, cfg):
@@ -2524,10 +2950,18 @@ def main() -> int:
 
     # ---- 10. tensor-parallel training: tp ranks on the card ---------------
     tp_counts, tp_err = tp_slice(dev, card, one)
+    torch.cuda.empty_cache()
+
+    # ---- 11. pipeline-parallel training: pp ranks on the card ----------
+    pp_counts = pp_slice(dev, card, one)
     del one
     torch.cuda.empty_cache()
 
-    # ---- 11. result -----------------------------------------------------
+    # ---- 12. compiled halos: the ranks of a grid on the card -----------
+    halo_counts, halo_err = halo_slice(dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- 13. result -----------------------------------------------------
     source = "mpi_tpu_torch/ops/csrc/flash_attention.cu"
     kernels = []
     for name, replaces, n in zip(
@@ -2558,7 +2992,9 @@ def main() -> int:
                         "launches": driver_launches[name],
                         "max_abs_err": max(ring_err[name], slice_err[name],
                                            dp_err.get(name, 0.0),
-                                           tp_err.get(name, 0.0)),
+                                           tp_err.get(name, 0.0),
+                                           halo_err if name == "sendrecv"
+                                           else 0.0),
                         **ring_rows[name]})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2566,7 +3002,9 @@ def main() -> int:
                 **({"long_context_launches": long_launches[row["name"]]}
                    if row["name"] in long_launches else {}),
                 "sharded_launches": sharded_launches.get(row["name"], 0),
-                "tp_launches": tp_counts.get(row["name"], 0)}
+                "tp_launches": tp_counts.get(row["name"], 0),
+                "pipeline_launches": pp_counts.get(row["name"], 0),
+                "halo_launches": halo_counts.get(row["name"], 0)}
                for row in kernels]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -3,11 +3,15 @@ loss and one training step on one device (AdamW, adafactor or sgd, at a
 constant rate or on optax's schedules; its attention sequence parallel
 over a rank mesh's ``sp`` axis, its batch data-parallel over the ``dp``
 axis, with ZeRO-1 or FSDP as options, the model split over the ``tp``
-axis), KV-cache generation, int8 weights, and loading the JAX package's
-tree."""
+axis), the same blocks as a GPipe pipeline over a ``pp`` axis
+(:mod:`.pipeline_lm`), KV-cache generation, int8 weights, and loading the
+JAX package's tree."""
 
 from .convert import params_from_jax
 from .generate import decode_step, generate, prefill
+from .pipeline_lm import (forward_pipelined, init_pipelined_params,
+                          make_pipelined_train_step, pipeline_loss_fn,
+                          stack_block_params)
 from .quant import QTensor, dequantize, quantize, quantize_params
 from .transformer import (TransformerConfig, forward, forward_with_aux,
                           full_params, init_params, loss_fn, make_mesh_nd,
@@ -19,4 +23,6 @@ __all__ = ["TransformerConfig", "init_params", "forward", "forward_with_aux",
            "make_train_step", "full_params", "rank_state", "param_specs",
            "make_mesh_nd", "prefill", "decode_step", "generate",
            "QTensor", "quantize", "dequantize", "quantize_params",
-           "params_from_jax"]
+           "params_from_jax", "stack_block_params", "init_pipelined_params",
+           "forward_pipelined", "pipeline_loss_fn",
+           "make_pipelined_train_step"]

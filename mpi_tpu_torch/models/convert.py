@@ -15,6 +15,7 @@ from typing import Any, Optional, Union
 import numpy as np
 import torch
 
+from ..parallel.zero import tree_leaves
 from ..utils.platform import resolve_device
 from .quant import QTensor
 from .transformer import TransformerConfig
@@ -41,8 +42,11 @@ def params_from_jax(tree: Any, cfg: TransformerConfig,
     Float leaves become ``cfg.param_dtype`` tensors on ``device`` (the
     CUDA device unless the caller names another); a ``(q, scale)`` tuple
     becomes a :class:`QTensor` with its int8 values and float32 scale as
-    they are. Raises ``ValueError`` if the tree's embedding or block count
-    disagree with ``cfg``."""
+    they are. A tree in pipeline layout (``"stages"``, every leaf leading
+    with ``(pp, layers_per_stage)``, from the JAX package's
+    ``stack_block_params``) is carried as it is. Raises ``ValueError`` if
+    the tree's embedding or layer count (``pp · layers_per_stage``, one
+    split for every stage leaf) disagree with ``cfg``."""
     dev = resolve_device(device)
 
     def walk(node: Any) -> Any:
@@ -58,10 +62,18 @@ def params_from_jax(tree: Any, cfg: TransformerConfig,
 
     params = walk(tree)
     embed = params["embed"]
+    if "stages" in params:  # pipeline layout: (pp, layers_per_stage, ...)
+        splits = {tuple(x.shape[:2]) for x in tree_leaves(params["stages"])}
+        split = next(iter(splits))
+        layers = split[0] * split[1] if len(splits) == 1 else None
+        what = f"stages of {sorted(splits)} (pp, layers_per_stage)"
+    else:
+        layers = len(params["blocks"])
+        what = f"{layers} blocks"
     if tuple(embed.shape) != (cfg.vocab, cfg.d_model) or \
-            len(params["blocks"]) != cfg.n_layers:
+            layers != cfg.n_layers:
         raise ValueError(
             f"mpi_tpu_torch: tree has embed {tuple(embed.shape)} and "
-            f"{len(params['blocks'])} blocks; cfg wants "
-            f"({cfg.vocab}, {cfg.d_model}) and {cfg.n_layers}")
+            f"{what}; cfg wants ({cfg.vocab}, {cfg.d_model}) and "
+            f"{cfg.n_layers} layers")
     return params

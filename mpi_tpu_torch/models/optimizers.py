@@ -16,7 +16,11 @@ no optax, so this module holds optax 0.2.6's rules:
   −1. The block RMS terms and the factored means are taken over each
   whole leaf: the port holds every leaf whole on one device, its tp ranks'
   slices being views (``parallel/tensor_parallel.py``), so none of them
-  needs a tp reduction.
+  needs a tp reduction. Under ZeRO-1 and FSDP a leaf lives as its dp
+  ranks' pieces in one device buffer: the rule puts the whole leaf and its
+  reduced gradient back together from them (``parallel/zero.py``'s
+  ``unshard``), keeps the moments of the whole leaf, and writes each
+  rank's part of the update into its piece.
 * sgd: ``torch.optim.SGD(momentum=0.9)``, whose momentum (dampening 0,
   the first buffer the gradient itself) is optax's ``trace``.
 * adamw: ``torch.optim.AdamW`` with optax's defaults (b1 0.9, b2 0.999,
@@ -34,6 +38,8 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..parallel.zero import pieces_view, unshard
 
 __all__ = ["factored_dims", "Adafactor", "linear_schedule",
            "warmup_cosine_decay_schedule", "learning_rate_schedule",
@@ -67,10 +73,16 @@ class Adafactor(torch.optim.Optimizer):
     (see the module note). The state of each leaf holds ``step`` (the
     update count) and ``v_row``, ``v_col`` and ``v``, shaped as optax's:
     the row and column moments of a factored leaf with ``v`` a ``(1,)``
-    zero, or the full moment ``v`` with ``(1,)`` zeros for the others."""
+    zero, or the full moment ``v`` with ``(1,)`` zeros for the others.
+
+    A param group whose ``pieces_dim`` is a dimension ``d`` holds leaves
+    given as their dp ranks' stacked pieces along ``d``, ``(n, ..., k,
+    ...)`` (``parallel.zero.pieces_view``; ZeRO-1's and FSDP's buffers):
+    the rule runs on the whole leaf, with the state of the whole leaf, and
+    each piece takes its part of the update."""
 
     def __init__(self, params, lr: float = 1e-3):
-        super().__init__(params, dict(lr=lr))
+        super().__init__(params, dict(lr=lr, pieces_dim=None))
 
     def _init_state(self, p: torch.Tensor, dims) -> dict:
         one = p.new_zeros(1)
@@ -91,14 +103,16 @@ class Adafactor(torch.optim.Optimizer):
             with torch.enable_grad():
                 loss = closure()
         for group in self.param_groups:
+            dim = group["pieces_dim"]
             for p in group["params"]:
                 if p.grad is None:
                     continue
-                g = p.grad
-                dims = factored_dims(p.shape)
+                whole, g = ((p, p.grad) if dim is None else
+                            (unshard(p, dim), unshard(p.grad, dim)))
+                dims = factored_dims(whole.shape)
                 state = self.state[p]
                 if not state:
-                    state.update(self._init_state(p, dims))
+                    state.update(self._init_state(whole, dims))
                 t = _F32(state["step"] + 1)
                 decay = float(_F32(1) - t ** _F32(-_DECAY_RATE))
                 g2 = g * g + _EPS
@@ -119,9 +133,9 @@ class Adafactor(torch.optim.Optimizer):
                 rms = u.square().mean().sqrt()
                 u = u / torch.clamp(rms / _CLIPPING_THRESHOLD, min=1.0)
                 u = u * group["lr"]
-                p_rms = p.square().mean().sqrt()
+                p_rms = whole.square().mean().sqrt()
                 u = u * torch.where(p_rms <= _MIN_SCALE, _MIN_SCALE, p_rms)
-                p.sub_(u)
+                p.sub_(u if dim is None else pieces_view(u, dim, p.shape[0]))
                 state["step"] += 1
         return loss
 

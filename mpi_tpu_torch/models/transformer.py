@@ -39,8 +39,10 @@ gradient becomes row r of a ``(dp, m)`` float32 bucket. Kernel 6 then
 reduces the bucket over the dp ring
 (:func:`~mpi_tpu_torch.parallel.mesh.axis_ring`) and the optimizer updates
 the parameters; with ``zero1`` the reduction is a reduce-scatter, each
-rank updates its shard with its shard of the optimizer state, and kernel 5
-gathers the parameters; with ``fsdp`` the parameters live as shards
+rank updates its shard with its shard of the optimizer state (adafactor,
+whose rule reduces over whole leaves: each leaf put back together from
+its ranks' shards, its moments whole), and kernel 5 gathers the
+parameters; with ``fsdp`` the parameters live as shards
 between steps and kernel 5 gathers each block's weights just before the
 block runs (:mod:`..parallel.zero` holds the layouts; dp claims the first
 dimension tp leaves free, ``wo (h, hd, d)`` dimension 1 under tp). The
@@ -572,12 +574,24 @@ class _DataParallel:
     every leaf is sharded, they give the same bits. (Plain dp reduces
     replicated leaves in the same launch as the shards, the others in a
     launch of their own, which moves the chunks' edges and so the fold
-    orders. adafactor is not elementwise: :func:`make_train_parts`
-    refuses it with zero1 or fsdp.)"""
+    orders.)
 
-    def __init__(self, cfg, mesh, build, grad_accum, mode):
+    adafactor's row and column means and its RMS terms are taken over
+    whole leaves, so with ``whole_leaves`` zero1 and fsdp hand the
+    optimizer each sharded leaf as its ``(dp, piece)`` view of the buffer
+    (``state["pieces"]``), with its reduced gradient as the same view of
+    the reduce-scatter's output, in a param group of its own whose
+    ``pieces_dim`` names the dimension dp claims
+    (:class:`~mpi_tpu_torch.models.optimizers.Adafactor`): the rule runs
+    on the whole leaf, its moments are those of the whole leaf, and each
+    rank's piece takes its part of the update. The whole leaf and its
+    gradient hold plain dp's values, so where every leaf is sharded the
+    modes give the same bits here too."""
+
+    def __init__(self, cfg, mesh, build, grad_accum, mode, whole_leaves):
         self.cfg, self.mesh, self.build = cfg, mesh, build
         self.grad_accum, self.mode = grad_accum, mode
+        self.whole_leaves = whole_leaves
         self.dp = mesh.shape["dp"]
         # One dp ring stands for every (sp, tp) position's: the ranks share
         # one device, and every position's ring reduces the same values.
@@ -624,13 +638,22 @@ class _DataParallel:
                             device=leaves[0].device) for start, stop in spans]
         state.update(spans=spans, buffers=bufs)
         self._fill(state, leaves)
+        pieces = [None if leaf.dim is None else self._pieces(state, i)
+                  for i, leaf in enumerate(layout.leaves)]
         if self.mode == "fsdp":  # the parameters are the pieces alone now
             state["params"] = _regroup(params, [
-                x if leaf.dim is None else self._pieces(state, i)
-                for i, (x, leaf) in enumerate(zip(leaves, layout.leaves))])
+                x if v is None else v for x, v in zip(leaves, pieces)])
         state["shards"] = [[buf[r] for buf in bufs] for r in range(self.dp)]
-        state["opt"] = self.build([s for row in state["shards"] for s in row]
-                                  + rest)
+        if self.whole_leaves:
+            state["pieces"] = pieces
+            groups = [{"params": [v], "pieces_dim": leaf.dim}
+                      for v, leaf in zip(pieces, layout.leaves)
+                      if v is not None]
+            state["opt"] = self.build(groups + ([{"params": rest}] if rest
+                                                else []))
+        else:
+            state["opt"] = self.build([s for row in state["shards"]
+                                       for s in row] + rest)
         return state
 
     def _pieces(self, state, i):
@@ -746,9 +769,14 @@ class _DataParallel:
             for i, x in enumerate(leaves):
                 if layout.leaves[i].dim is None:
                     x.grad = layout.unpack(rest, i)
-        for r, row in enumerate(state["shards"]):
-            for s, (start, stop) in zip(row, state["spans"]):
-                s.grad = mine[r, start:stop]
+        if self.whole_leaves:
+            for i, v in enumerate(state["pieces"]):
+                if v is not None:
+                    v.grad = layout.pieces(mine, i)
+        else:
+            for r, row in enumerate(state["shards"]):
+                for s, (start, stop) in zip(row, state["spans"]):
+                    s.grad = mine[r, start:stop]
         opt.step()
         if self.mode == "zero1":
             gathered = ring_allgather(state["buffers"][0].reshape(-1),
@@ -790,7 +818,7 @@ def rank_state(state: Dict[str, Any], rank: int,
     leaf that dp or tp shards, the leaf whole where neither does. These
     are the shapes of the JAX package's shards on that rank's device; an
     optimizer tensor not of its leaf's shape (adafactor's factored
-    moments) is given whole."""
+    moments) is given whole, as zero1 and fsdp keep it."""
     params, opt = state["params"], state["opt"]
     layout, mesh = state.get("layout"), state.get("mesh")
     leaves = [x for g in _groups(params) for x in tree_leaves(g)]
@@ -804,6 +832,11 @@ def rank_state(state: Dict[str, Any], rank: int,
             return x if what == "params" else opt.state[x][what]
         if what == "params":
             return x[rank] if state["mode"] == "fsdp" else x
+        if "pieces" in state:  # the moments of the whole leaf
+            moment = opt.state[state["pieces"][i]][what]
+            if moment.shape != layout.leaves[i].shape:
+                return moment
+            return pieces_view(moment, dim, layout.n)[rank]
         g, start = _span(state, i)
         moment = opt.state[state["shards"][rank][g]][what]
         return layout.pieces(moment.view(1, -1), i, start)[0]
@@ -868,16 +901,12 @@ def make_train_parts(cfg: TransformerConfig, mesh: Any = None,
         raise ValueError("mpi_tpu_torch: fsdp subsumes zero1 (optimizer "
                          "state follows the dp-sharded parameters); pass "
                          "only fsdp=True")
-    if optimizer == "adafactor" and (zero1 or fsdp):
-        raise NotImplementedError(
-            "mpi_tpu_torch: optimizer='adafactor' with zero1 or fsdp is not "
-            "ported: its factored moments and block RMS terms are not "
-            "elementwise over the flat dp shards (ROADMAP.md item 13)")
     build = make_optimizer(optimizer, learning_rate, warmup_steps,
                            total_steps)
     if has_dp and mesh.shape["dp"] > 1:
         mode = "fsdp" if fsdp else "zero1" if zero1 else "dp"
-        parallel = _DataParallel(cfg, mesh, build, grad_accum, mode)
+        parallel = _DataParallel(cfg, mesh, build, grad_accum, mode,
+                                 whole_leaves=optimizer == "adafactor")
         from_params, step = parallel.from_params, parallel.step
     else:  # one dp rank: zero1 and fsdp shard nothing, as in JAX
         def from_params(params: Dict[str, Any]) -> Dict[str, Any]:

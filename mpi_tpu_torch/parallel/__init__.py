@@ -3,10 +3,11 @@ point-to-point exchange between its ranks, the collectives over them
 (``parallel/collectives.py``, imported as a module as in the JAX package),
 the long-context layer over a mesh's ``sp`` axis: ring attention, Ulysses
 and cache-parallel decode, the ZeRO-1 / FSDP layouts over its ``dp``
-axis (``parallel/zero.py``, imported as a module), and Megatron's
+axis (``parallel/zero.py``, imported as a module), Megatron's
 reductions over its ``tp`` axis (``parallel/tensor_parallel.py``, imported
-as a module; no JAX twin: GSPMD inserts them there); counterpart of
-``mpi_tpu/parallel``.
+as a module; no JAX twin: GSPMD inserts them there), GPipe over its ``pp``
+axis, and the halo exchange and Jacobi sweeps of a block-sharded grid;
+counterpart of ``mpi_tpu/parallel``.
 The ring kernels live in ``mpi_tpu_torch/ops/ring_collectives.py``, as in
 the JAX package."""
 
@@ -20,6 +21,8 @@ from .ring_attention import (ring_attention, ring_attention_sharded,
                              ring_flash_attention_zigzag, zigzag_indices,
                              zigzag_inverse_indices)
 from .ulysses import ulysses_attention, ulysses_attention_sharded
+from .pipeline import pipeline, pipeline_sharded
+from .halo import halo_exchange, jacobi_step_1d, jacobi_step_2d
 from .cache_parallel import (cache_parallel_decode_attention,
                              merge_decode_partials)
 
@@ -31,4 +34,5 @@ __all__ = ["RANK_AXIS", "RankMesh", "rank_axis", "mesh_devices", "make_mesh",
            "ring_attention_sharded", "ring_attention_zigzag",
            "zigzag_indices", "zigzag_inverse_indices", "ulysses_attention",
            "ulysses_attention_sharded", "cache_parallel_decode_attention",
-           "merge_decode_partials"]
+           "merge_decode_partials", "pipeline", "pipeline_sharded",
+           "halo_exchange", "jacobi_step_1d", "jacobi_step_2d"]

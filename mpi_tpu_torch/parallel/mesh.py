@@ -24,6 +24,7 @@ import torch
 
 __all__ = ["RANK_AXIS", "RankMesh", "rank_axis", "mesh_devices", "make_mesh",
            "make_mesh_2d", "axis_slice", "axis_ring", "mesh_device",
+           "shared_ring",
            "rank_pointers", "describe_topology"]
 
 RANK_AXIS = "rank"
@@ -159,6 +160,24 @@ def mesh_device(mesh: RankMesh, x: torch.Tensor, name: str) -> str:
                          f"{x.device}, the mesh's ranks on "
                          f"{mesh.devices[0]}")
     return x.device.type
+
+
+def shared_ring(mesh: RankMesh, axis_name: str, x: torch.Tensor,
+                what: str) -> RankMesh:
+    """The 1-D mesh of ``mesh``'s ``axis_name`` ranks, on the device they
+    share with ``x``. The other axes (``dp``, ``tp``) stay batch and head
+    dimensions of the same launches: the ring of ring attention, Ulysses
+    and the pipeline. Raises ``TypeError`` for a mesh that is no
+    :class:`RankMesh`, ``ValueError`` for one without the axis,
+    ``NotImplementedError`` for one over several distinct devices."""
+    if not isinstance(mesh, RankMesh):
+        raise TypeError(f"mpi_tpu_torch: {what} takes a RankMesh; got "
+                        f"{type(mesh).__name__}")
+    if axis_name not in mesh.axis_names:
+        raise ValueError(f"mpi_tpu_torch: mesh {mesh.axis_names} has no "
+                         f"{axis_name!r} axis for {what}")
+    mesh_device(mesh, x, what)
+    return RankMesh([mesh.devices[0]] * mesh.shape[axis_name], (axis_name,))
 
 
 def rank_pointers(stacked: torch.Tensor) -> ctypes.Array:

@@ -33,7 +33,7 @@ from ..ops import _build
 from .mesh import RankMesh, mesh_device, rank_pointers
 
 __all__ = ["exchange", "tagged_exchange", "exchange_sharded", "sendrecv",
-           "sendrecv_sharded", "sendrecv_plain"]
+           "sendrecv_sharded", "sendrecv_plain", "ring_hop", "ring_shift"]
 
 Pair = Tuple[int, int]
 
@@ -222,3 +222,31 @@ def sendrecv_sharded(x: torch.Tensor, mesh: RankMesh, perm: Sequence[Pair]
 
 
 sendrecv.launches = 0
+
+
+def ring_hop(x: torch.Tensor, mesh: RankMesh, shift: int = 1) -> torch.Tensor:
+    """Rank r's block of ``x`` ``(n, ...)`` to rank (r + shift) mod n: one
+    kernel-7 launch (the block made contiguous first)."""
+    n = mesh.size
+    return sendrecv(x.contiguous(), mesh,
+                    [(r, (r + shift) % n) for r in range(n)])
+
+
+class _RingShift(torch.autograd.Function):
+    """The hop with a gradient: its backward is the reverse hop."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return ring_hop(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ring_hop(g, ctx.mesh, -1), None
+
+
+def ring_shift(x: torch.Tensor, mesh: RankMesh) -> torch.Tensor:
+    """:func:`ring_hop` by one rank, differentiable: the ring attention
+    fold's and the pipeline's hop (``lax.ppermute`` ``i → i+1 mod n`` in
+    the JAX package), one kernel-7 launch forward and one backward."""
+    return _RingShift.apply(x, mesh)

@@ -51,8 +51,8 @@ import torch
 from ..ops.attention import (NEG_INF, flash_bwd_dkv, flash_bwd_dq,
                              flash_fwd, merge_attention_chunks,
                              online_softmax_fold)
-from .mesh import RankMesh, mesh_device
-from .p2p import sendrecv
+from .mesh import RankMesh, mesh_device, shared_ring
+from .p2p import ring_hop, ring_shift
 
 __all__ = ["ring_attention", "ring_flash_attention",
            "ring_flash_attention_zigzag", "ring_attention_sharded",
@@ -61,45 +61,8 @@ __all__ = ["ring_attention", "ring_flash_attention",
 
 
 # --------------------------------------------------------------------------
-# The ring: the mesh, the hop and the stacked view
+# The stacked view (the ring and its hop: parallel/mesh.py, p2p.py)
 # --------------------------------------------------------------------------
-
-def sp_ring(mesh: RankMesh, axis_name: str, x: torch.Tensor,
-            what: str) -> RankMesh:
-    """The 1-D mesh of ``mesh``'s ``axis_name`` ranks, on the device they
-    share with ``x``. The other axes (``dp``, ``tp``) stay batch and head
-    dimensions of the same launches. Raises ``TypeError`` for a mesh that
-    is no :class:`RankMesh`, ``ValueError`` for one without the axis,
-    ``NotImplementedError`` for one over several distinct devices."""
-    if not isinstance(mesh, RankMesh):
-        raise TypeError(f"mpi_tpu_torch: {what} takes a RankMesh; got "
-                        f"{type(mesh).__name__}")
-    if axis_name not in mesh.axis_names:
-        raise ValueError(f"mpi_tpu_torch: mesh {mesh.axis_names} has no "
-                         f"{axis_name!r} axis for {what}")
-    mesh_device(mesh, x, what)
-    return RankMesh([mesh.devices[0]] * mesh.shape[axis_name], (axis_name,))
-
-
-def _hop(x: torch.Tensor, mesh: RankMesh, shift: int = 1) -> torch.Tensor:
-    """Rank r's block to rank (r + shift) mod n: one kernel-7 launch."""
-    n = mesh.size
-    return sendrecv(x.contiguous(), mesh,
-                    [(r, (r + shift) % n) for r in range(n)])
-
-
-class _RingShift(torch.autograd.Function):
-    """The hop with a gradient: its backward is the reverse hop."""
-
-    @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return _hop(x, mesh)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _hop(g, ctx.mesh, -1), None
-
 
 def _stacked_shape(q, k, v, mesh: RankMesh, what: str):
     """``(n, b, s_local, h, d)`` after checking the stacked shards."""
@@ -176,7 +139,7 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                         scale)
         if step + 1 < n:
             # Neighbour hop: kv moves, queries stay.
-            kv = _RingShift.apply(kv, mesh)
+            kv = ring_shift(kv, mesh)
     return _fold_end(q, *state)
 
 
@@ -204,7 +167,7 @@ def ring_attention_zigzag(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     state = online_softmax_fold(q32, kv[:, 0], kv[:, 1], *state, scale,
                                 mask=mask0)
     for step in range(1, n):
-        kv = _RingShift.apply(kv, mesh)
+        kv = ring_shift(kv, mesh)
         m, l, acc = state
         past = online_softmax_fold(
             q32[step:], kv[step:, 0, ..., :c, :], kv[step:, 1, ..., :c, :],
@@ -287,7 +250,7 @@ class _RingFlash(torch.autograd.Function):
         out, lse = _chunk_fwd(q, kv[:, 0], kv[:, 1], causal)
         out = out.float()
         for step in range(1, n):
-            kv = _hop(kv, mesh)
+            kv = ring_hop(kv, mesh)
             lo = step if causal else 0  # causal: ranks 0..step-1 skip
             oc, lc = _chunk_fwd(q[lo:], kv[lo:, 0], kv[lo:, 1], False)
             _merge_into(out[lo:], lse[lo:], oc, lc)
@@ -308,8 +271,8 @@ class _RingFlash(torch.autograd.Function):
         kv = torch.stack([k, v], 1)
         for step in range(n):
             if step:
-                kv = _hop(kv, mesh)
-                dkv = _hop(dkv, mesh)
+                kv = ring_hop(kv, mesh)
+                dkv = ring_hop(dkv, mesh)
             lo = step if causal else 0
             dql, dkl, dvl = _chunk_bwd(q[lo:], kv[lo:, 0], kv[lo:, 1],
                                        g[lo:], lse[lo:], delta[lo:],
@@ -317,7 +280,7 @@ class _RingFlash(torch.autograd.Function):
             dq[lo:] += dql
             dkv[lo:, 0] += dkl
             dkv[lo:, 1] += dvl
-        dkv = _hop(dkv, mesh)
+        dkv = ring_hop(dkv, mesh)
         return (dq.to(q.dtype), dkv[:, 0].to(k.dtype), dkv[:, 1].to(v.dtype),
                 None, None)
 
@@ -357,7 +320,7 @@ class _RingFlashZigzag(torch.autograd.Function):
                             False)
         _merge_into(out[:, :, c:], lse[..., c:], oc, lc)
         for step in range(1, n):
-            kv = _hop(kv, mesh)
+            kv = ring_hop(kv, mesh)
             # Ranks step..n-1 (src < r): every query x the early kv half.
             oc, lc = _chunk_fwd(q[step:], kv[step:, 0, :, :c],
                                 kv[step:, 1, :, :c], False)
@@ -391,8 +354,8 @@ class _RingFlashZigzag(torch.autograd.Function):
             dkv[:, 0, :, ks] += dkl
             dkv[:, 1, :, ks] += dvl
         for step in range(1, n):
-            kv = _hop(kv, mesh)
-            dkv = _hop(dkv, mesh)
+            kv = ring_hop(kv, mesh)
+            dkv = ring_hop(dkv, mesh)
             dql, dkl, dvl = _chunk_bwd(
                 q[step:], kv[step:, 0, :, :c], kv[step:, 1, :, :c], g[step:],
                 lse[step:], delta[step:], False)
@@ -405,7 +368,7 @@ class _RingFlashZigzag(torch.autograd.Function):
             dq[:step, :, c:] += dql
             dkv[:step, 0] += dkl
             dkv[:step, 1] += dvl
-        dkv = _hop(dkv, mesh)
+        dkv = ring_hop(dkv, mesh)
         return (dq.to(q.dtype), dkv[:, 0].to(k.dtype), dkv[:, 1].to(v.dtype),
                 None)
 
@@ -492,7 +455,7 @@ def ring_attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     into the zigzag order, runs the zigzag body and permutes back.
     ``chunk_impl`` is ``"fold"`` (einsum, autograd) or ``"flash"`` (the
     kernels, with their FA-2 backward)."""
-    ring = sp_ring(mesh, axis_name, q, "ring attention")
+    ring = shared_ring(mesh, axis_name, q, "ring attention")
     if chunk_impl not in ("fold", "flash"):
         raise ValueError(
             f"mpi_tpu_torch: unknown ring chunk_impl {chunk_impl!r}: "

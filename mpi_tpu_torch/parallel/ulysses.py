@@ -22,8 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.attention import blockwise_attention, flash_attention
-from .mesh import RankMesh
-from .ring_attention import sp_ring
+from .mesh import RankMesh, shared_ring
 
 __all__ = ["ulysses_attention", "ulysses_attention_sharded"]
 
@@ -84,7 +83,7 @@ def ulysses_attention_sharded(q: torch.Tensor, k: torch.Tensor,
     :func:`~.ring_attention.ring_attention_sharded`, the ``dp`` ranks are
     the batch of the same calls, so the JAX function's ``batch_axis`` /
     ``head_axis`` have no counterpart."""
-    ring = sp_ring(mesh, axis_name, q, "ulysses")
+    ring = shared_ring(mesh, axis_name, q, "ulysses")
     n = ring.size
     b, s = q.shape[:2]
     if s % n:

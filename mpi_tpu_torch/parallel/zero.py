@@ -149,8 +149,14 @@ def pieces_view(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
 
 def unshard(pieces: torch.Tensor, dim: int) -> torch.Tensor:
     """The full tensor from its stacked pieces (:func:`pieces_view`'s
-    inverse)."""
-    return pieces.movedim(0, dim).flatten(dim, dim + 1)
+    inverse), always a new contiguous tensor: a view of the pieces (which
+    flattening gives when a piece is one slice thick) would make a
+    reduction over it fold in another order than over the leaf itself."""
+    n, shape = pieces.shape[0], list(pieces.shape[1:])
+    shape[dim] *= n
+    out = pieces.new_empty(shape)
+    pieces_view(out, dim, n).copy_(pieces)
+    return out
 
 
 class DpLayout:

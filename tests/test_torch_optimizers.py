@@ -191,15 +191,20 @@ def test_three_steps_match_jax(case):
 
 @pytest.mark.parametrize("flag", ["zero1", "fsdp"])
 def test_adafactor_under_zero1_or_fsdp_raises(flag):
-    """The JAX package runs this combination; the port refuses it: the
-    factored moments and block RMS terms are not elementwise over the flat
-    dp shards (queued in ROADMAP.md)."""
+    """Both packages build adafactor with zero1 or fsdp, and neither
+    raises: the port runs the rule over whole leaves put back together
+    from the dp shards (``tests/test_torch_adafactor_sharded.py`` holds it
+    against JAX's step). One port step keeps adafactor's moments."""
     jax_make_train_step(JaxConfig(**MODEL), optimizer="adafactor",
                         mesh=jax_make_mesh_nd(8, devices=jax.devices()[:8]),
                         **{flag: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 13"):
-        make_train_parts(TransformerConfig(**MODEL), optimizer="adafactor",
-                         mesh=RankMesh(["cpu"] * 8, ("dp",)), **{flag: True})
+    init_state, step = make_train_parts(
+        TransformerConfig(**MODEL), optimizer="adafactor",
+        mesh=RankMesh(["cpu"] * 8, ("dp",)), **{flag: True})
+    state = init_state(torch.Generator().manual_seed(0), "cpu")
+    _, loss = step(state, torch.from_numpy(_tokens()))
+    assert np.isfinite(float(loss))
+    assert set(rank_state(state, 0)) == {"params", "v_row", "v_col", "v"}
 
 
 def test_state_names_and_adafactor_bytes():

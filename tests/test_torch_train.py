@@ -211,11 +211,6 @@ def test_indivisible_batch_raises(trees):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    # adafactor's factored moments over zero1's and fsdp's flat dp shards.
-    ({"optimizer": "adafactor", "zero1": True,
-      "mesh": RankMesh(["cpu"] * 2, ("dp",))}, "ROADMAP.md item 13"),
-    ({"optimizer": "adafactor", "fsdp": True,
-      "mesh": RankMesh(["cpu"] * 2, ("dp",))}, "ROADMAP.md item 13"),
     # A mesh whose ranks lie on distinct devices; another object than a
     # RankMesh raises TypeError (checked in the body).
     ({"mesh": RankMesh(["cpu", "cuda:0"], ("sp",))}, "NVLink peer path"),
