@@ -57,6 +57,15 @@ port's paths and checks what comes out:
   ``("row", "col")`` mesh, Dirichlet and periodic, and of a rod of 2^28
   cells over 8 ranks (the send/receive kernel for each halo), bitwise the
   dense sweep of the whole tensor;
+* Mixture of Experts: the flagship with 8 experts a block, top-2 routing,
+  served through ``generate`` (the flash-decode kernel; teacher-forced
+  against dense decode, int8 weights against bf16), ten AdamW steps on
+  one device (the flash kernels), one float32 step with flash against
+  dense attention (the routing decisions that differ counted), and three
+  steps over ``("dp", "ep")`` meshes of (1, 8) and (2, 4) ranks (the
+  experts' partial outputs summed on the all-reduce kernel), held against
+  the single-device step and against a faulty control, every copy the
+  kernel writes bitwise the same;
 
 then times the paths and the kernels, and prints:
 
@@ -65,8 +74,9 @@ then times the paths and the kernels, and prints:
   driver's phase; kernels 1-4 and 7 also ``long_context_launches``, on the
   long-context phase; every kernel ``sharded_launches``, on the
   data-parallel phase, ``tp_launches``, on the tensor-parallel phase,
-  ``pipeline_launches``, on the pipeline phase, and ``halo_launches``, on
-  the halo phase),
+  ``pipeline_launches``, on the pipeline phase, ``halo_launches``, on
+  the halo phase, and ``moe_launches``, on the Mixture-of-Experts phase,
+  checked against the count worked out from the code),
   its largest error against the plain version, and
   its time beside its bound, the plain version's time and one PyTorch
   library call's time;
@@ -247,6 +257,40 @@ PP_PARAM_REL = 1e-1
 HALO_GRID = 16384
 HALO_ROD = 2 ** 28
 HALO_SWEEPS = 50
+
+# The Mixture-of-Experts flagship (phase 13): the flagship with
+# MOE_EXPERTS experts a block, top-MOE_TOP_K routing, capacity factor
+# MOE_CAPACITY; expert parallelism over (dp, ep) meshes of MOE_EP_MESHES
+# ranks on the card, MOE_EP_STEPS steps each, against the single-device
+# step from the same seeded state and batch.
+MOE_EXPERTS = 8
+MOE_TOP_K = 2
+MOE_CAPACITY = 1.25
+MOE_EP_MESHES = ((1, 8), (2, 4))
+MOE_EP_STEPS = 3
+# ep against one device: the loss gap relative to one device's loss, and
+# the parameters' gap ||p_ep - p_one|| / ||p_one - p_0|| as in
+# DP_PARAM_REL. Each ep rank's experts' output is rounded to bf16 before
+# the float32 sum over the ranks where one device rounds the combine
+# once, the (2, 4) ranks run 4 rows through cuBLAS and the flash kernels
+# where one device runs 8, a bf16 rounding difference near a tie flips a
+# token's expert, and AdamW's first update is about lr·sign(g) on 537 M
+# expert weights. Measured (NVIDIA H100 80GB HBM3, 700.00 W): loss gaps
+# 2.7e-5 to 4.9e-4 and parameter gaps 0.294 (1, 8) and 0.289 (2, 4); the
+# faulty control (the experts' partial outputs reduced to rank 0's alone)
+# missed by 1.7e-3, 1.2e-2, 3.5e-2 in the loss and 1.22 in the
+# parameters. Each tolerance sits about halfway between on a log scale
+# (EP_LOSS_RTOL 2.1 times the largest sound gap and 1.7 times under the
+# control's least; EP_PARAM_REL 2.0 times over and 2.0 times under), and
+# the phase checks that the control still falls outside both.
+EP_LOSS_RTOL = 1e-3
+EP_PARAM_REL = 6e-1
+# One float32 step of the MoE flagship, flash against dense attention:
+# summation order, as TRAIN_LOSS_RTOL, plus any routing decision a
+# rounding difference flips near a tie or at a full buffer's last slot.
+# Measured (same card): a gap of 9.9e-8 with no decision of 131,072
+# changed; 1e-4 leaves room for a few flips.
+MOE_F32_LOSS_RTOL = 1e-4
 
 N_REQUESTS = 3
 BATCH = 8
@@ -2639,6 +2683,440 @@ def halo_slice(dev, card):
     return main_counts, err
 
 
+def moe_config(base, **kw):
+    """``base`` (a flagship config) with the MoE flagship's experts:
+    MOE_EXPERTS experts, top-MOE_TOP_K routing, capacity factor
+    MOE_CAPACITY."""
+    import dataclasses
+
+    return dataclasses.replace(base, n_experts=MOE_EXPERTS,
+                               moe_top_k=MOE_TOP_K,
+                               capacity_factor=MOE_CAPACITY, **kw)
+
+
+def moe_launches(layers, requests, new_tokens, steps, ep_steps, meshes):
+    """Launches of kernels 1-4 and 6 on phase 13's main path, counted from
+    the code (``models/moe.py``, ``models/transformer.py``,
+    ``models/generate.py``): (a) each request's decode steps launch kernel
+    4 once a layer (the first new token comes from the prefill, on the
+    dense cached path); (b) and (c) each step's each dp rank launches
+    kernels 1-3 once a layer; under ep each dp rank launches kernel 6
+    twice a layer (the experts' partial outputs forward, the gradient to
+    their input backward), and a dp axis above 1 launches it once more
+    for the fractions of first choices and once for the gradient bucket.
+    ``meshes`` are the (dp, ep) shapes (c) runs, ``ep_steps`` steps
+    each."""
+    k123 = layers * (steps + ep_steps * sum(dp for dp, _ in meshes))
+    return {"flash_fwd": k123, "flash_bwd_dq": k123, "flash_bwd_dkv": k123,
+            "flash_decode_attention": requests * layers * (new_tokens - 1),
+            "ring_allreduce": ep_steps * sum(dp * 2 * layers + 2 * (dp > 1)
+                                             for dp, _ in meshes)}
+
+
+class RecordedRoutes:
+    """While active, every routing of ``models.moe.route`` is kept:
+    ``seen`` holds each call's (topk_idx, kept), in call order."""
+
+    def __enter__(self):
+        import importlib
+
+        self.moe = importlib.import_module("mpi_tpu_torch.models.moe")
+        self.route, self.seen = self.moe.route, []
+
+        def recording(*args):
+            out = self.route(*args)
+            self.seen.append((out[2].clone(), out[3].clone()))
+            return out
+
+        self.moe.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def differ(self, other):
+        """(choices whose expert differs, choices whose slot verdict
+        differs, choices compared) against another recording of the same
+        calls."""
+        check(len(self.seen) == len(other.seen),
+              f"{len(self.seen)} routings against {len(other.seen)}")
+        idx = kept = total = 0
+        for (i1, k1), (i2, k2) in zip(self.seen, other.seen):
+            idx += int((i1 != i2).sum())
+            kept += int((k1 != k2).sum())
+            total += i1.numel()
+        return idx, kept, total
+
+
+def moe_slice(dev, card, dense_ms):
+    """Phase 13: the Mixture-of-Experts flagship (the flagship with
+    MOE_EXPERTS experts, top-MOE_TOP_K routing, capacity factor
+    MOE_CAPACITY) served, trained on one device and trained
+    expert-parallel on the card. Main path, counted alone: (a) N_REQUESTS
+    requests of BATCH x PROMPT_LEN prompts + NEW_TOKENS through
+    ``generate`` (bf16, kernel 4 for each decode step); (b) TRAIN_STEPS
+    AdamW steps at full width and depth (bf16 over float32 masters,
+    flash attention, batch 8, seq 1024), the first MOE_EP_STEPS of which
+    are (c)'s single-device reference; (c) MOE_EP_STEPS steps over
+    ``("dp", "ep")`` meshes of MOE_EP_MESHES ranks on the card from (b)'s
+    seeded state and batch, every copy kernel 6 writes checked to hold the
+    same bits. Then, outside the count: (a)'s teacher-forced float32
+    logits, flash-decode kernel against dense decode, with the routing
+    decisions that differ counted; int8 weights' greedy agreement with
+    bf16; ms per generated token; one float32 training step with flash
+    against dense attention (the loss within MOE_F32_LOSS_RTOL, the
+    routing decisions that differ counted); two faulty controls of (c):
+    the experts' partial outputs reduced to rank 0's alone on (1, 8), which
+    must miss (c)'s tolerances, and each dp rank's own aux penalty on (2,
+    4), measured; kernel 6 against its plain version at the ep shapes
+    (bitwise) and its time; (b)'s and (c)'s ms per step beside the dense
+    flagship's ``dense_ms`` (phase 4), and a profile of one (1, 8) step.
+    Returns {kernel: launches on the main path}."""
+    import dataclasses
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from mpi_tpu_torch.models import (generate, init_params, loss_fn,
+                                      make_train_step, quantize_params)
+    from mpi_tpu_torch.models.generate import decode_step, prefill
+    from mpi_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
+                                             flash_fwd)
+    from mpi_tpu_torch.ops.decode_attention import flash_decode_attention
+    from mpi_tpu_torch.ops.ring_collectives import (ring_allreduce,
+                                                    ring_allreduce_plain)
+    from mpi_tpu_torch.parallel import RankMesh
+    from mpi_tpu_torch.parallel.mesh import axis_ring
+    from mpi_tpu_torch.parallel.zero import tree_leaves
+    from mpi_tpu_torch.serve import flagship_config
+    from mpi_tpu_torch.train import flagship_train_config
+
+    tpm = importlib.import_module("mpi_tpu_torch.parallel.tensor_parallel")
+    tfm = importlib.import_module("mpi_tpu_torch.models.transformer")
+    wrappers = {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
+                "flash_bwd_dkv": flash_bwd_dkv,
+                "flash_decode_attention": flash_decode_attention,
+                "ring_allreduce": ring_allreduce}
+    names = list(wrappers)
+
+    def counts():
+        return [wrappers[k].launches for k in names]
+
+    scfg = moe_config(flagship_config())
+    tcfg = moe_config(flagship_train_config())
+    layers = tcfg.n_layers
+    steps = NEW_TOKENS - 1
+
+    # ---- the main path: (a), (b), (c), counted alone ----------------------
+    hgen = torch.Generator().manual_seed(0)
+    sparams = init_params(scfg, hgen)
+    prompts = [torch.randint(0, scfg.vocab, (BATCH, PROMPT_LEN),
+                             generator=hgen) for _ in range(N_REQUESTS)]
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, tcfg.vocab, (8, tcfg.max_seq))).to(dev)
+    params0 = init_params(tcfg, torch.Generator().manual_seed(0), dev)
+    p0 = [x.detach().clone() for x in tree_leaves(params0)]
+    copies = {"calls": 0, "differ": 0}
+
+    def checked(contribs, ring, op="sum"):
+        """Kernel 6 as the ep and dp reductions call it; every rank's copy
+        of the result must hold copy 0's bits."""
+        out = ring_allreduce(contribs, ring, op)
+        bits = out.view({2: torch.int16, 4: torch.int32}[out.element_size()])
+        copies["calls"] += 1
+        copies["differ"] += int(not bool((bits == bits[:1]).all()))
+        return out
+
+    def run(label, mesh, p, n, want=None):
+        """``n`` AdamW steps from ``p`` over ``mesh``: (step, state,
+        losses); each step's launches of kernels 1-3 and 6 must equal
+        ``want`` where given."""
+        init_state, step = make_train_step(tcfg, mesh=mesh)
+        state = init_state.from_params(p)
+        losses = []
+        for i in range(n):
+            before = counts()
+            state, loss = step(state, tokens)
+            got = [a - b for a, b in zip(counts(), before)]
+            got = got[:3] + got[4:]
+            check(want is None or got == want,
+                  f"{label} step {i}: kernels 1-3 and 6 launched {got} "
+                  f"times, want {want} (counted from the code)")
+            losses.append(float(loss))
+        check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+        return step, state, losses
+
+    def leaves(state):
+        return [x.detach() for x in tree_leaves(state["params"])]
+
+    for w in wrappers.values():
+        w.launches = 0
+    outs = []
+    for i, prompt in enumerate(prompts):
+        before = flash_decode_attention.launches
+        toks = generate(sparams, prompt, scfg, NEW_TOKENS)
+        got = flash_decode_attention.launches - before
+        check(got == layers * steps,
+              f"MoE request {i}: decode kernel launched {got} times, want "
+              f"{layers} layers x {steps} steps")
+        check(tuple(toks.shape) == (BATCH, NEW_TOKENS) and
+              bool(((toks >= 0) & (toks < scfg.vocab)).all()),
+              f"MoE request {i}: tokens {tuple(toks.shape)} outside the "
+              f"vocab or of the wrong shape")
+        outs.append(toks)
+
+    one_k = [layers] * 3 + [0]
+    bstep, bstate, blosses = run("(b) one device", None, clone_tree(params0),
+                                 MOE_EP_STEPS, one_k)
+    one_leaves = [x.clone() for x in leaves(bstate)]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for i in range(TRAIN_STEPS - MOE_EP_STEPS):
+        if i == 1:
+            start.record()  # after one more warm-up step
+        bstate, loss = bstep(bstate, tokens)
+        blosses.append(loss)
+    end.record()
+    torch.cuda.synchronize()
+    one_ms = start.elapsed_time(end) / (TRAIN_STEPS - MOE_EP_STEPS - 1)
+    blosses = [float(x) for x in blosses]
+    check(all(np.isfinite(blosses)) and blosses[-1] < blosses[0],
+          f"(b) MoE losses not finite or not falling: {blosses}")
+    del bstate, bstep
+    torch.cuda.empty_cache()
+
+    ep_runs = {}
+    tpm.ring_allreduce = tfm.ring_allreduce = checked
+    try:
+        for dp, ep in MOE_EP_MESHES:
+            mesh = RankMesh([dev] * (dp * ep), ("dp", "ep"), (dp, ep))
+            k6 = dp * 2 * layers + 2 * (dp > 1)
+            ep_runs[dp, ep] = run(f"(c) ({dp}, {ep})", mesh,
+                                  clone_tree(params0), MOE_EP_STEPS,
+                                  [dp * layers] * 3 + [k6])
+    finally:
+        tpm.ring_allreduce = tfm.ring_allreduce = ring_allreduce
+    main_counts = dict(zip(names, counts()))
+    want_counts = moe_launches(layers, N_REQUESTS, NEW_TOKENS, TRAIN_STEPS,
+                               MOE_EP_STEPS, MOE_EP_MESHES)
+    check(main_counts == want_counts,
+          f"MoE phase launches {main_counts}, want {want_counts} (counted "
+          f"from the code)")
+    n_copies = MOE_EP_STEPS * sum(dp * 2 * layers + 2 * (dp > 1)
+                                  for dp, _ in MOE_EP_MESHES)
+    check(copies["calls"] == n_copies and copies["differ"] == 0,
+          f"(c): {copies['differ']} of {copies['calls']} kernel-6 results "
+          f"hold copies that differ from copy 0 (want {n_copies} results, "
+          f"every copy the same bits)")
+    print(f"MoE flagship ({MOE_EXPERTS} experts, top-{MOE_TOP_K}, capacity "
+          f"factor {MOE_CAPACITY}): served {N_REQUESTS} requests of "
+          f"{BATCH}x{PROMPT_LEN} + {NEW_TOKENS}; (b) {TRAIN_STEPS} steps, "
+          f"losses {blosses}; main-path launches {main_counts} as counted "
+          f"from the code; {copies['calls']} kernel-6 results in (c), every "
+          f"copy the same bits")
+
+    # ---- (c) against one device, and the controls -------------------------
+    ep_leaves = {}
+    for key, (step, state, losses) in ep_runs.items():
+        ep_leaves[key] = (losses, [x.clone() for x in leaves(state)])
+    timed = {key: run[:2] for key, run in ep_runs.items()}
+    del ep_runs
+
+    def rank_zero(contribs, ring, op="sum"):
+        return contribs[:1].expand_as(contribs)
+
+    tpm.ring_allreduce = rank_zero
+    try:
+        _, cstate, closs = run("control: rank 0's partials", RankMesh(
+            [dev] * 8, ("dp", "ep"), (1, 8)), clone_tree(params0),
+            MOE_EP_STEPS)
+    finally:
+        tpm.ring_allreduce = ring_allreduce
+    ctrl = (closs, [x.clone() for x in leaves(cstate)])
+    del cstate
+
+    def per_rank(self, state, inputs, rows):
+        for r in range(self.dp):
+            yield loss_fn(state["params"], rows[r], self.cfg,
+                          self.rank_meshes[r])
+
+    sound_rank_losses = tfm._DataParallel._rank_losses
+    tfm._DataParallel._rank_losses = per_rank
+    try:
+        _, astate, aloss = run("per-rank aux", RankMesh(
+            [dev] * 8, ("dp", "ep"), (2, 4)), clone_tree(params0),
+            MOE_EP_STEPS)
+    finally:
+        tfm._DataParallel._rank_losses = sound_rank_losses
+    per_rank_aux = (aloss, [x.clone() for x in leaves(astate)])
+    del astate
+    torch.cuda.empty_cache()
+
+    one = (blosses[:MOE_EP_STEPS], one_leaves)
+    gaps = {f"(c) {k}": (loss_gaps(v[0], one[0]), rel_gap(v[1], one[1], p0))
+            for k, v in ep_leaves.items()}
+    gaps["control: rank 0's partials (1, 8)"] = (
+        loss_gaps(ctrl[0], one[0]), rel_gap(ctrl[1], one[1], p0))
+    gaps["per-rank aux (2, 4)"] = (loss_gaps(per_rank_aux[0], one[0]),
+                                   rel_gap(per_rank_aux[1], one[1], p0))
+    gaps["per-rank aux against (c) (2, 4)"] = (
+        loss_gaps(per_rank_aux[0], ep_leaves[2, 4][0]),
+        rel_gap(per_rank_aux[1], ep_leaves[2, 4][1], p0))
+    print(f"expert-parallel MoE flagship against one device ({MOE_EP_STEPS} "
+          f"steps): losses one device {one[0]}, "
+          f"{ {str(k): v[0] for k, v in ep_leaves.items()} }, control "
+          f"{ctrl[0]}, per-rank aux {per_rank_aux[0]}")
+    for label, (lg, pg) in gaps.items():
+        print(f"{label}: relative loss gaps {lg} (rtol {EP_LOSS_RTOL}), "
+              f"parameter gap ||p - p_ref|| / ||p_ref - p_0|| {pg!r} "
+              f"(limit {EP_PARAM_REL})")
+    for key in ep_leaves:
+        lg, pg = gaps[f"(c) {key}"]
+        check(max(lg) <= EP_LOSS_RTOL and pg <= EP_PARAM_REL,
+              f"(c) {key}: loss gaps {lg} or parameter gap {pg} to one "
+              f"device outside rtol {EP_LOSS_RTOL} / limit {EP_PARAM_REL}")
+    lg, pg = gaps["control: rank 0's partials (1, 8)"]
+    check(min(lg) > EP_LOSS_RTOL and pg > EP_PARAM_REL,
+          f"control (rank 0's partials alone): loss gaps {lg} or parameter "
+          f"gap {pg} inside rtol {EP_LOSS_RTOL} / limit {EP_PARAM_REL}")
+    del ep_leaves, ctrl, per_rank_aux, one_leaves
+    torch.cuda.empty_cache()
+
+    # ---- (a) teacher-forced, int8 weights, times ------------------------
+    cfg_f = moe_config(flagship_config(dtype=torch.float32))
+    cfg_d = dataclasses.replace(cfg_f, decode_attention="dense")
+    params32 = init_params(cfg_f, torch.Generator().manual_seed(0))
+    seq = torch.cat([prompts[0].to(dev), outs[0]], dim=1)
+    worst, agree, n_tok = 0.0, 0, 0
+    with torch.no_grad(), RecordedRoutes() as rd:
+        _, cache_d = prefill(params32, seq[:, :PROMPT_LEN], cfg_d)
+        logits_d = [decode_step(params32, seq[:, n], cache_d, n, cfg_d)[0]
+                    for n in range(PROMPT_LEN, PROMPT_LEN + steps)]
+    with torch.no_grad(), RecordedRoutes() as rf:
+        _, cache_f = prefill(params32, seq[:, :PROMPT_LEN], cfg_f)
+        for n in range(PROMPT_LEN, PROMPT_LEN + steps):
+            lf, cache_f = decode_step(params32, seq[:, n], cache_f, n, cfg_f)
+            ld = logits_d[n - PROMPT_LEN]
+            check(bool(torch.isfinite(lf).all()),
+                  f"MoE: non-finite logits at n_valid={n}")
+            check(torch.allclose(lf, ld, atol=SLICE_LOGITS_ATOL,
+                                 rtol=SLICE_LOGITS_RTOL),
+                  f"MoE flash vs dense logits differ by "
+                  f"{(lf - ld).abs().max().item()} at n_valid={n}")
+            worst = max(worst, (lf - ld).abs().max().item())
+            agree += int((lf.argmax(-1) == ld.argmax(-1)).sum())
+            n_tok += lf.shape[0]
+    routes = rf.differ(rd)
+    print(f"MoE teacher-forced float32 flash vs dense decode over {steps} "
+          f"steps: max |logit diff| {worst!r} (atol {SLICE_LOGITS_ATOL}, "
+          f"rtol {SLICE_LOGITS_RTOL}); greedy-token agreement "
+          f"{agree / n_tok!r}; routing decisions that differ: {routes[0]} "
+          f"experts, {routes[1]} slot verdicts of {routes[2]} choices")
+    del params32, cache_f, cache_d, logits_d
+
+    qparams = quantize_params(sparams)
+    qtoks = generate(qparams, prompts[0], scfg, NEW_TOKENS)
+    check(tuple(qtoks.shape) == (BATCH, NEW_TOKENS) and
+          bool(((qtoks >= 0) & (qtoks < scfg.vocab)).all()),
+          "MoE int8 tokens outside the vocab or of the wrong shape")
+    print(f"MoE int8 weights (router and experts too): agreement with bf16 "
+          f"greedy {float((qtoks == outs[0]).float().mean())!r}")
+    n_gen = BATCH * NEW_TOKENS
+    for label, p, c in (
+            ("MoE generate bf16, flash-decode kernel", sparams, scfg),
+            ("MoE generate bf16, dense decode", sparams,
+             dataclasses.replace(scfg, decode_attention="dense")),
+            ("MoE generate int8 weights, flash-decode kernel", qparams,
+             scfg)):
+        generate(p, prompts[1], c, NEW_TOKENS)  # warm-up
+        start.record()
+        for _ in range(2):
+            generate(p, prompts[1], c, NEW_TOKENS)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / 2
+        print(f"{label}: {ms!r} ms per request, {ms / NEW_TOKENS!r} ms per "
+              f"generated token, {n_gen / ms * 1e3!r} tok/s  [{card}]")
+    del qparams, sparams
+    torch.cuda.empty_cache()
+
+    # ---- (b) float32, flash against dense -------------------------------
+    f32 = {}
+    for impl in ("flash", "dense"):
+        cfg = moe_config(flagship_train_config(dtype=torch.float32,
+                                               attention_impl=impl))
+        params = init_params(cfg, torch.Generator().manual_seed(0))
+        for x in tree_leaves(params):
+            x.requires_grad_(True)
+        with RecordedRoutes() as rec:
+            loss = loss_fn(params, tokens, cfg)
+        loss.backward()
+        f32[impl] = (loss.item(), rec)
+        del params, loss
+        torch.cuda.empty_cache()
+    (lf, rf), (ld, rd) = f32["flash"], f32["dense"]
+    routes = rf.differ(rd)
+    print(f"MoE float32 step, flash vs dense attention: loss {lf!r} vs "
+          f"{ld!r}, relative gap {abs(lf - ld) / abs(ld)!r} (rtol "
+          f"{MOE_F32_LOSS_RTOL}); routing decisions that differ: "
+          f"{routes[0]} experts, {routes[1]} slot verdicts of {routes[2]} "
+          f"choices")
+    check(np.isfinite(lf) and abs(lf - ld) <= MOE_F32_LOSS_RTOL * abs(ld),
+          f"MoE float32 flash loss {lf} vs dense {ld}")
+    del f32, rf, rd
+
+    # ---- kernel 6 against plain at the ep shapes -------------------------
+    gen = torch.Generator(device=dev).manual_seed(13)
+    m = 8 * (tcfg.max_seq - 1) * tcfg.d_model  # the (b, s, d) partials
+    for dp, ep in MOE_EP_MESHES:
+        ring = axis_ring(RankMesh([dev] * ep, ("ep",)), "ep")
+        x = torch.randn(ep, m // dp, generator=gen, device=dev)
+        got, ref = ring_allreduce(x, ring), ring_allreduce_plain(x)
+        torch.cuda.synchronize()
+        check(bits_equal(got, ref), f"kernel 6 on the ({dp}, {ep}) ep "
+                                    f"partials differs from plain")
+        ar_ms = kernel_ms(lambda c: ring_allreduce(c, ring), [(x,)], 20)
+        ar_bound = bound(2 * ep * (m // dp) * 4, (ep - 1) * (m // dp),
+                         torch.float32)[0]
+        print(f"kernel 6 at the ({dp}, {ep}) ep partials ({ep}, {m // dp}) "
+              f"float32: bitwise equal to plain, {ar_ms * 1e3!r} us against "
+              f"a {ar_bound * 1e3!r} us bound  [{card}]")
+        del x, got, ref
+    torch.cuda.empty_cache()
+
+    # ---- times -------------------------------------------------------------
+    tok = 8 * (tcfg.max_seq - 1)
+    print(f"(b) MoE one device: {one_ms!r} ms per step, "
+          f"{tok / one_ms * 1e3!r} tokens/s; dense flagship {dense_ms!r} ms "
+          f"per step, {tok / dense_ms * 1e3!r} tokens/s (phase 4)  [{card}]")
+    for (dp, ep), (tstep, tstate) in timed.items():
+        start.record()
+        host = time.perf_counter()
+        for _ in range(MOE_EP_STEPS):
+            tstep(tstate, tokens)
+        host = (time.perf_counter() - host) * 1e3 / MOE_EP_STEPS
+        end.record()
+        torch.cuda.synchronize()
+        ep_ms = start.elapsed_time(end) / MOE_EP_STEPS
+        print(f"(c) MoE ({dp}, {ep}): {ep_ms!r} ms per step, "
+              f"{tok / ep_ms * 1e3!r} tokens/s (CUDA events over "
+              f"{MOE_EP_STEPS} steps after {MOE_EP_STEPS}), host enqueue "
+              f"{host!r} ms per step  [{card}]")
+        prof = profile_steps(lambda: tstep(tstate, tokens), 1,
+                             f"(c) MoE ({dp}, {ep})", ep_ms, card)
+        if prof is not None:
+            g = prof["groups"]
+            print(f"(c) MoE ({dp}, {ep}): kernel 6 "
+                  f"{g.get('all-reduce kernel 6', (0, 0))} (ms, launches) "
+                  f"a step; device busy share {prof['busy']!r}; "
+                  f"{prof['launches']!r} launches a step  [{card}]")
+    del timed, tstep, tstate
+    torch.cuda.empty_cache()
+    print(f"MoE phase launches (main path: (a)-(c)): {main_counts}")
+    return main_counts
+
+
 def decode_times(dev, gen, card, cfg):
     """Kernel 4 at the flagship decode shape (n_valid 0, 128 and 255) and
     at a long cache of the same widths (t 8192, n_valid 8191): kernel,
@@ -2961,7 +3439,11 @@ def main() -> int:
     halo_counts, halo_err = halo_slice(dev, card)
     torch.cuda.empty_cache()
 
-    # ---- 13. result -----------------------------------------------------
+    # ---- 13. Mixture of Experts: served, trained, expert-parallel -------
+    moe_counts = moe_slice(dev, card, step_ms)
+    torch.cuda.empty_cache()
+
+    # ---- 14. result -----------------------------------------------------
     source = "mpi_tpu_torch/ops/csrc/flash_attention.cu"
     kernels = []
     for name, replaces, n in zip(
@@ -3004,7 +3486,8 @@ def main() -> int:
                 "sharded_launches": sharded_launches.get(row["name"], 0),
                 "tp_launches": tp_counts.get(row["name"], 0),
                 "pipeline_launches": pp_counts.get(row["name"], 0),
-                "halo_launches": halo_counts.get(row["name"], 0)}
+                "halo_launches": halo_counts.get(row["name"], 0),
+                "moe_launches": moe_counts.get(row["name"], 0)}
                for row in kernels]
     print(card)
     print(json.dumps({"kernels": kernels}))

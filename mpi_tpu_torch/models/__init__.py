@@ -4,11 +4,13 @@ constant rate or on optax's schedules; its attention sequence parallel
 over a rank mesh's ``sp`` axis, its batch data-parallel over the ``dp``
 axis, with ZeRO-1 or FSDP as options, the model split over the ``tp``
 axis), the same blocks as a GPipe pipeline over a ``pp`` axis
-(:mod:`.pipeline_lm`), KV-cache generation, int8 weights, and loading the
-JAX package's tree."""
+(:mod:`.pipeline_lm`), the Mixture-of-Experts FFN with its experts over
+an ``ep`` axis (:mod:`.moe`), KV-cache generation, int8 weights, and
+loading the JAX package's tree."""
 
 from .convert import params_from_jax
 from .generate import decode_step, generate, prefill
+from .moe import init_moe_params, moe_ffn, moe_specs
 from .pipeline_lm import (forward_pipelined, init_pipelined_params,
                           make_pipelined_train_step, pipeline_loss_fn,
                           stack_block_params)
@@ -25,4 +27,5 @@ __all__ = ["TransformerConfig", "init_params", "forward", "forward_with_aux",
            "QTensor", "quantize", "dequantize", "quantize_params",
            "params_from_jax", "stack_block_params", "init_pipelined_params",
            "forward_pipelined", "pipeline_loss_fn",
-           "make_pipelined_train_step"]
+           "make_pipelined_train_step", "init_moe_params", "moe_ffn",
+           "moe_specs"]

@@ -93,7 +93,7 @@ def _forward_cached(params, tokens: torch.Tensor, cache: Cache,
         x = x + torch.einsum("bshk,hkd->bsd", ctx, blk["wo"].to(x.dtype))
         h = _layernorm(x, blk["ln2"]["scale"].to(x.dtype),
                        blk["ln2"]["bias"].to(x.dtype))
-        x = x + _ffn(h, blk, cfg)
+        x = x + _ffn(h, blk, cfg)[0]  # the aux is for training alone
     x = _layernorm(x, params["final_ln"]["scale"].to(x.dtype),
                    params["final_ln"]["bias"].to(x.dtype))
     return logits_matmul(x, params["embed"]), cache

@@ -109,7 +109,7 @@ def forward_pipelined(params: Dict[str, Any], tokens: torch.Tensor,
         for layer in range(leaves[0].shape[0]):
             blk = tree_with_leaves(stage_params,
                                    (leaf[layer] for leaf in leaves))
-            mx = block_body(mx, blk, cfg, None)
+            mx = block_body(mx, blk, cfg, None)[0]
         return mx
 
     ys = pipeline_sharded(stage_fn, params["stages"], xs, mesh,

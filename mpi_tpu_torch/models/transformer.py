@@ -48,8 +48,21 @@ block runs (:mod:`..parallel.zero` holds the layouts; dp claims the first
 dimension tp leaves free, ``wo (h, hd, d)`` dimension 1 under tp). The
 returned loss is the mean of the ranks' losses. The optimizers are
 optax's rules (:mod:`.optimizers`). A mesh over several distinct devices
-raises ``NotImplementedError`` (the NVLink peer path of kernels 5-7); the
-Mixture-of-Experts FFN belongs to a later slice.
+raises ``NotImplementedError`` (the NVLink peer path of kernels 5-7).
+
+**Mixture of Experts.** With ``n_experts > 0`` each block's FFN is the
+routed top-k expert FFN of :mod:`.moe`, and the blocks carry the aux
+statistics out (each expert's fraction of first choices and its mean
+router probability), from which the loss adds ``moe_aux_coef`` times the
+load-balance penalty summed over the layers. An ``ep`` axis above 1 splits
+the experts over its ranks, their partial outputs summed on kernel 6. The
+penalty is the JAX package's over the whole batch: under dp the fractions
+are the global batch's (every dp rank's forward first, then the ranks'
+fractions summed over the dp ring on kernel 6, then the backwards: the
+fractions carry no gradient, so each rank's penalty with the global
+fractions and its own probabilities gives the global penalty and its
+gradient as the mean over the ranks), and ``grad_accum`` takes JAX's
+microbatches (consecutive rows of the global batch, each split over dp).
 """
 
 from __future__ import annotations
@@ -76,6 +89,7 @@ from ..parallel.tensor_parallel import (tp_copy, tp_reduce, tp_ring,
                                         vocab_parallel_xent)
 from ..parallel.ulysses import ulysses_attention_sharded
 from ..utils.platform import resolve_device
+from .moe import aux_loss, init_moe_params, moe_parts
 from .optimizers import build_optimizer, learning_rate_schedule
 
 __all__ = ["TransformerConfig", "init_params", "param_specs", "sanitize_spec",
@@ -147,11 +161,10 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     """Initialise the parameter tree (plain dicts and a list of blocks, the
     JAX package's layout) from ``generator``, on ``device`` (the CUDA
     device unless the caller names another). Weights are
-    ``N(0, 1) / sqrt(fan_in)``; the draws differ from ``jax.random``'s."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "mpi_tpu_torch: Mixture-of-Experts blocks belong to a later "
-            "slice of the port")
+    ``N(0, 1) / sqrt(fan_in)``; the draws differ from ``jax.random``'s.
+    With ``n_experts > 0`` a block holds the experts' tree (``"moe"``,
+    :func:`~mpi_tpu_torch.models.moe.init_moe_params`) in place of ``w1``
+    and ``w2``."""
     dev = resolve_device(device)
     pd = cfg.param_dtype
 
@@ -176,16 +189,21 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     if not cfg.rope:  # rope needs no learned position table
         params["pos"] = dense((cfg.max_seq, d), d)
     for _ in range(cfg.n_layers):
-        params["blocks"].append({
+        blk = {
             "ln1": {"scale": ones(d), "bias": zeros(d)},
             "ln2": {"scale": ones(d), "bias": zeros(d)},
             "wq": dense((d, h, hd), d),
             "wk": dense((d, kv, hd), d),
             "wv": dense((d, kv, hd), d),
             "wo": dense((h, hd, d), d),
-            "w1": dense((d, f), d),
-            "w2": dense((f, d), f),
-        })
+        }
+        if cfg.n_experts > 0:
+            blk["moe"] = init_moe_params(d, f, cfg.n_experts, pd, generator,
+                                         dev)
+        else:
+            blk["w1"] = dense((d, f), d)
+            blk["w2"] = dense((f, d), f)
+        params["blocks"].append(blk)
     return params
 
 
@@ -196,7 +214,7 @@ def param_specs(cfg: TransformerConfig) -> Dict[str, Any]:
     q, k and v column-parallel over heads, wo row-parallel, w1 column- and
     w2 row-parallel over d_ff, the embedding vocab-sharded; norms and the
     position table replicated. With experts the block holds the JAX tree's
-    MoE entries (experts over ``ep``), though MoE itself is not ported."""
+    MoE entries (experts over ``ep``, each expert's d_ff over ``tp``)."""
     blk: Dict[str, Any] = {
         "ln1": {"scale": (), "bias": ()},
         "ln2": {"scale": (), "bias": ()},
@@ -346,28 +364,33 @@ def _attention(x, blk, cfg: TransformerConfig,
 
 
 def _ffn(x, blk, cfg: TransformerConfig, ring: Optional[RankMesh] = None):
-    """Position-wise dense FFN with tanh-GELU (``jax.nn.gelu``'s default),
-    over the tp ranks of ``ring``: rank r its d_ff columns of w1 and rows of
-    w2, the partials summed by :func:`tp_reduce`."""
+    """Position-wise FFN with tanh-GELU (``jax.nn.gelu``'s default):
+    ``(y, stats)``. Dense, over the tp ranks of ``ring``: rank r its d_ff
+    columns of w1 and rows of w2, the partials summed by :func:`tp_reduce`,
+    and empty statistics ``(2, 0)``. With experts, the routed FFN over the
+    ep ranks of ``ring`` and its aux statistics ``(2, E)``
+    (:func:`~mpi_tpu_torch.models.moe.moe_parts`)."""
     if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "mpi_tpu_torch: Mixture-of-Experts FFN belongs to a later slice "
-            "of the port")
+        return moe_parts(x, blk["moe"], cfg.n_experts, cfg.capacity_factor,
+                         cfg.moe_top_k, ring)
     tp = tp_size(ring)
     h = F.gelu(torch.einsum("tbsd,dtf->tbsf", tp_copy(x, ring),
                             blk["w1"].to(x.dtype).unflatten(1, (tp, -1))),
                approximate="tanh")
     partial = torch.einsum("tbsf,tfd->tbsd", h,
                            blk["w2"].to(x.dtype).unflatten(0, (tp, -1)))
-    return tp_reduce(partial, ring)
+    return (tp_reduce(partial, ring),
+            torch.zeros((2, 0), dtype=torch.float32, device=x.device))
 
 
 def block_body(x, blk, cfg: TransformerConfig,
                mesh: Optional[RankMesh] = None):
-    """One pre-norm transformer block (attention and FFN residuals).
-    ``blk`` is the block's tree, or a callable that returns it: an FSDP
-    step's block, whose weights are gathered here, and again when remat
-    recomputes the block in the backward."""
+    """One pre-norm transformer block (attention and FFN residuals):
+    ``(x, stats)``, the FFN's aux statistics beside the output (see
+    :func:`_ffn`). ``blk`` is the block's tree, or a callable that returns
+    it: an FSDP step's block, whose weights are gathered here, and again
+    when remat recomputes the block in the backward. The experts run over
+    ``mesh``'s ``ep`` ring, the rest over its ``tp`` ring."""
     if callable(blk):
         blk = blk()
     ring = tp_ring(mesh)
@@ -376,7 +399,9 @@ def block_body(x, blk, cfg: TransformerConfig,
     x = x + _attention(h, blk, cfg, mesh, ring)
     h = _layernorm(x, blk["ln2"]["scale"].to(x.dtype),
                    blk["ln2"]["bias"].to(x.dtype))
-    return x + _ffn(h, blk, cfg, ring)
+    y, stats = _ffn(h, blk, cfg, tp_ring(mesh, "ep") if cfg.n_experts
+                    else ring)
+    return x + y, stats
 
 
 def _vocab_parallel_forward(params: Dict[str, Any], tokens: torch.Tensor,
@@ -384,25 +409,28 @@ def _vocab_parallel_forward(params: Dict[str, Any], tokens: torch.Tensor,
                             mesh: Optional[RankMesh]
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (batch, seq) → (logits ``(tp, batch, seq, vocab/tp)``, tp
-    rank r's vocab range at index r, and the aux loss)."""
+    rank r's vocab range at index r, and the layers' aux statistics ``(L,
+    2, E)``, E = 0 for the dense FFN)."""
     check_mesh(mesh, cfg)
     s = tokens.shape[1]
     ring = tp_ring(mesh)
     x = vocab_parallel_embed(params["embed"].to(cfg.dtype), tokens, ring)
     if not cfg.rope:
         x = x + params["pos"].to(cfg.dtype)[:s][None]
+    stats = []
     for blk in params["blocks"]:
         if cfg.remat:
-            x = checkpoint(block_body, x, blk, cfg, mesh,
-                           use_reentrant=False)
+            x, blk_stats = checkpoint(block_body, x, blk, cfg, mesh,
+                                      use_reentrant=False)
         else:
-            x = block_body(x, blk, cfg, mesh)
+            x, blk_stats = block_body(x, blk, cfg, mesh)
+        stats.append(blk_stats)
     x = _layernorm(x, params["final_ln"]["scale"].to(x.dtype),
                    params["final_ln"]["bias"].to(x.dtype))
     logits = torch.einsum(
         "tbsd,tvd->tbsv", tp_copy(x, ring),
         params["embed"].to(x.dtype).unflatten(0, (tp_size(ring), -1)))
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, torch.stack(stats)
 
 
 def forward_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
@@ -410,14 +438,14 @@ def forward_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (batch, seq) → (logits (batch, seq, vocab), aux loss), on the
     device the parameters lie on. The aux loss is the MoE load-balance
-    penalty, 0 for the dense FFN (the only one ported). With
+    penalty summed over the layers, 0 for the dense FFN. With
     ``cfg.remat`` each block is recomputed in the backward pass
     (``torch.utils.checkpoint``, where JAX has ``jax.checkpoint``). The
     sequence-parallel impls run over ``mesh``'s ``sp`` axis and a ``tp``
     axis splits the model (see the module note); the tp ranks' vocab
     ranges of the logits are laid side by side."""
-    logits, aux = _vocab_parallel_forward(params, tokens, cfg, mesh)
-    return logits.permute(1, 2, 0, 3).flatten(2), aux
+    logits, stats = _vocab_parallel_forward(params, tokens, cfg, mesh)
+    return logits.permute(1, 2, 0, 3).flatten(2), aux_loss(stats)
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor,
@@ -445,13 +473,21 @@ def loss_fn(params: Dict[str, Any], tokens: torch.Tensor,
     Over a ``tp`` axis the cross-entropy is vocab-parallel
     (:func:`~mpi_tpu_torch.parallel.tensor_parallel.vocab_parallel_xent`):
     the logits are never gathered."""
-    logits, aux = _vocab_parallel_forward(params, tokens[:, :-1], cfg, mesh)
+    xent, stats = _loss_parts(params, tokens, cfg, mesh)
+    return xent + cfg.moe_aux_coef * aux_loss(stats)
+
+
+def _loss_parts(params: Dict[str, Any], tokens: torch.Tensor,
+                cfg: TransformerConfig, mesh: Optional[RankMesh]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`loss_fn`'s cross-entropy and the layers' aux statistics
+    ``(L, 2, E)``."""
+    logits, stats = _vocab_parallel_forward(params, tokens[:, :-1], cfg,
+                                            mesh)
     ring = tp_ring(mesh)
     if ring is None:
-        xent = token_xent(logits[0], tokens[:, 1:])
-    else:
-        xent = vocab_parallel_xent(logits, tokens[:, 1:], ring)
-    return xent + cfg.moe_aux_coef * aux
+        return token_xent(logits[0], tokens[:, 1:]), stats
+    return vocab_parallel_xent(logits, tokens[:, 1:], ring), stats
 
 
 # --------------------------------------------------------------------------
@@ -461,10 +497,12 @@ def loss_fn(params: Dict[str, Any], tokens: torch.Tensor,
 def check_mesh(mesh: Any, cfg: TransformerConfig) -> None:
     """Raise unless ``mesh`` is None or a :class:`RankMesh` this slice
     runs: ``TypeError`` for another object, ``NotImplementedError`` for
-    ranks over several distinct devices, ``ValueError`` when its ``tp``
-    axis does not divide the heads (as the JAX package checks), d_ff or
-    the vocabulary (each tp rank reads an equal slice of w1, w2 and the
-    embedding)."""
+    ranks over several distinct devices and for experts with a ``tp`` axis
+    above 1, ``ValueError`` when its ``tp`` axis does not divide the heads
+    (as the JAX package checks), d_ff or the vocabulary (each tp rank
+    reads an equal slice of w1, w2 and the embedding), or, with experts,
+    its ``ep`` axis does not divide them (each ep rank runs an equal
+    share)."""
     if mesh is None:
         return
     if not isinstance(mesh, RankMesh):
@@ -485,6 +523,17 @@ def check_mesh(mesh: Any, cfg: TransformerConfig) -> None:
         raise ValueError(
             f"mpi_tpu_torch: tp={tp} must divide d_ff={cfg.d_ff} and "
             f"vocab={cfg.vocab} (w1, w2 and the embedding split over tp)")
+    if cfg.n_experts == 0:
+        return
+    ep = mesh.shape.get("ep", 1)
+    if cfg.n_experts % ep:
+        raise ValueError(
+            f"mpi_tpu_torch: ep={ep} must divide n_experts={cfg.n_experts} "
+            f"(each ep rank runs an equal share of the experts)")
+    if tp > 1:
+        raise NotImplementedError(
+            f"mpi_tpu_torch: experts with tp={tp} (each expert's d_ff over "
+            f"tp) are not ported yet: ROADMAP.md, Queue 1 item 11")
 
 
 def make_optimizer(optimizer: str = "adamw", learning_rate: float = 1e-3,
@@ -700,14 +749,13 @@ class _DataParallel:
         if b % (dp * k):
             raise ValueError(f"mpi_tpu_torch: batch {b} not divisible by "
                              f"dp={dp} x grad_accum={k}")
-        rows = b // dp
         params = state["params"]
         leaves = [x for g in _groups(params) for x in tree_leaves(g)]
         dev = leaves[0].device
         tokens = tokens.to(dev)
         opt.zero_grad(set_to_none=True)
-        fsdp = self.mode == "fsdp"
-        if fsdp:  # the buffers' gradients, then the replicated leaves'
+        # fsdp: the buffers' gradients, then the replicated leaves'.
+        if self.mode == "fsdp":
             inputs = [buf.detach().requires_grad_(True)
                       for buf in state["buffers"]]
             inputs += [x for x, leaf in zip(leaves, layout.leaves)
@@ -718,13 +766,12 @@ class _DataParallel:
                              device=dev)
         bucket[:, dp * layout.chunk + layout.rest:].zero_()
         loss = torch.zeros((), dtype=torch.float32, device=dev)
-        for r in range(dp):  # rank r's gradient from its own rows alone
-            for j, micro in enumerate(
-                    tokens[r * rows:(r + 1) * rows].chunk(k)):
-                rank_params = (self._rank_params(state, inputs, r) if fsdp
-                               else params)
-                micro_loss = loss_fn(rank_params, micro, self.cfg,
-                                     self.rank_meshes[r]) / k
+        # JAX's microbatches: consecutive rows of the batch, each split
+        # over dp; rank r's gradient from its own rows alone.
+        for j, micro in enumerate(tokens.chunk(k)):
+            for r, rank_loss in enumerate(self._rank_losses(
+                    state, inputs, micro.chunk(dp))):
+                micro_loss = rank_loss / k
                 grads = torch.autograd.grad(micro_loss, inputs,
                                             allow_unused=True,
                                             materialize_grads=True)
@@ -732,6 +779,36 @@ class _DataParallel:
                 loss += micro_loss.detach()
         self._update(state, leaves, bucket)
         return state, loss / dp
+
+    def _rank_losses(self, state, inputs, rows):
+        """Each dp rank's loss on its ``rows``, in rank order. The dense
+        model's are computed one at a time, as they are asked for (one
+        rank's graph held at a time). With experts every rank's forward
+        runs first, then kernel 6 sums the ranks' fractions of first
+        choices ``(dp, L·E)`` over the dp ring, and rank r's loss takes the
+        penalty with the global batch's fractions (their mean) and its own
+        router probabilities: the JAX package's penalty over the batch and
+        its gradient, as the mean over the ranks."""
+        def parts(r):
+            rank_params = (self._rank_params(state, inputs, r)
+                           if self.mode == "fsdp" else state["params"])
+            return _loss_parts(rank_params, rows[r], self.cfg,
+                               self.rank_meshes[r])
+
+        if not self.cfg.n_experts:
+            for r in range(self.dp):
+                xent, _ = parts(r)
+                yield xent
+            return
+        ranks = [parts(r) for r in range(self.dp)]
+        # The ranks' (L, E) fractions summed over the dp ring: tp_reduce
+        # takes any ring.
+        frac = tp_reduce(torch.stack([stats[:, 0].detach()
+                                      for _, stats in ranks]),
+                         self.ring) / self.dp
+        for xent, stats in ranks:
+            global_stats = torch.stack([frac, stats[:, 1]], dim=1)
+            yield xent + self.cfg.moe_aux_coef * aux_loss(global_stats)
 
     def _pack(self, state, row, grads, add):
         layout = state["layout"]
@@ -877,8 +954,9 @@ def make_train_parts(cfg: TransformerConfig, mesh: Any = None,
     on the device.
 
     ``grad_accum=k`` averages the gradients of ``k`` microbatches before
-    one update; the batch (each dp rank's rows, over a dp mesh) must
-    divide by ``k``. The optimizer options are :func:`make_optimizer`'s.
+    one update, each ``b/k`` consecutive rows of the batch (split over
+    the dp ranks, over a dp mesh); the batch must divide by ``k`` (times
+    dp). The optimizer options are :func:`make_optimizer`'s.
     ``mesh`` is a :class:`RankMesh` whose ranks share the device
     (:func:`check_mesh`): its ``sp`` axis carries the sequence-parallel
     attention impls, and a ``dp`` axis above 1 makes the step
@@ -901,6 +979,10 @@ def make_train_parts(cfg: TransformerConfig, mesh: Any = None,
         raise ValueError("mpi_tpu_torch: fsdp subsumes zero1 (optimizer "
                          "state follows the dp-sharded parameters); pass "
                          "only fsdp=True")
+    if cfg.n_experts and (zero1 or fsdp):
+        raise NotImplementedError(
+            f"mpi_tpu_torch: experts under {'fsdp' if fsdp else 'zero1'} "
+            f"are not ported yet: ROADMAP.md, Queue 1 item 11")
     build = make_optimizer(optimizer, learning_rate, warmup_steps,
                            total_steps)
     if has_dp and mesh.shape["dp"] > 1:

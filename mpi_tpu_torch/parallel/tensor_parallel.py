@@ -21,6 +21,10 @@ each over the tp ring of a :class:`RankMesh`
   Σexp(l − m) and the target logit (zero off its owner) summed in one
   launch. The ``(b, s, V)`` logits are never gathered.
 
+:func:`tp_copy` and :func:`tp_reduce` take any ring: the Mixture-of-Experts
+FFN runs them over the ``ep`` axis (``tp_ring(mesh, "ep")``), each ep rank
+its experts (:mod:`..models.moe`).
+
 The ranks share one device. Kernel 6 writes every rank's copy of a
 reduction, and every copy holds the same bits (one fold order); a
 tp-replicated activation is held once, so the operators read copy 0, as
@@ -50,12 +54,14 @@ __all__ = ["REDUCE_DTYPE", "tp_ring", "tp_size", "tp_copy", "tp_reduce",
 REDUCE_DTYPE = torch.float32
 
 
-def tp_ring(mesh: Optional[RankMesh]) -> Optional[RankMesh]:
-    """The tp ring of ``mesh`` (its ``tp`` axis at coordinate 0 of the
-    others), or None where the mesh has no ``tp`` axis above 1."""
-    if mesh is None or mesh.shape.get("tp", 1) == 1:
+def tp_ring(mesh: Optional[RankMesh],
+            axis: str = "tp") -> Optional[RankMesh]:
+    """The ring of ``mesh``'s ``axis`` (``tp``, or ``ep`` for the experts;
+    at coordinate 0 of the other axes), or None where the mesh has no such
+    axis above 1."""
+    if mesh is None or mesh.shape.get(axis, 1) == 1:
         return None
-    return axis_ring(mesh, "tp")
+    return axis_ring(mesh, axis)
 
 
 def tp_size(ring: Optional[RankMesh]) -> int:

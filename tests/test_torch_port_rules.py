@@ -29,7 +29,7 @@ import torch
 
 from mpi_tpu_torch import train
 from mpi_tpu_torch.models import (TransformerConfig, generate, init_params,
-                                  make_train_step)
+                                  init_moe_params, make_train_step)
 from mpi_tpu_torch.ops import _build
 from mpi_tpu_torch.ops.attention import (flash_attention, flash_bwd_dkv,
                                          flash_bwd_dq, flash_bwd_dq_delta,
@@ -69,6 +69,7 @@ def test_importing_the_port_loads_no_jax():
             "mpi_tpu_torch.parallel.ring_attention, "
             "mpi_tpu_torch.parallel.ulysses, "
             "mpi_tpu_torch.parallel.cache_parallel, "
+            "mpi_tpu_torch.models.moe, "
             "mpi_tpu_torch.collectives_generic, mpi_tpu_torch.runner, "
             "mpi_tpu_torch.backends.cuda, mpi_tpu_torch.backends.rendezvous, "
             "mpi_tpu_torch.examples.helloworld, "
@@ -109,6 +110,33 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert generate(params, prompt, CFG, 2, device="cpu").shape == (1, 2)
     assert set(init_state(torch.Generator().manual_seed(0),
                           device="cpu")) == {"params", "opt"}
+
+
+def test_moe_entry_points_raise_without_cuda(monkeypatch):
+    """The Mixture-of-Experts flagship's entry points: its parameters, the
+    experts' own, its training state and generate, on an ep mesh too."""
+    cfg = TransformerConfig(vocab=64, d_model=32, n_heads=4, n_layers=1,
+                            d_ff=64, max_seq=16, n_experts=4, moe_top_k=2)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompt = torch.zeros((1, 4), dtype=torch.long)
+    mesh = make_mesh(4, axis="ep", devices=["cpu"] * 4)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_moe_params(32, 64, 4, torch.float32,
+                        torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate(params, prompt, cfg, 2)
+    for m in (None, mesh):
+        init_state, step = make_train_step(cfg, mesh=m)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_state(torch.Generator().manual_seed(0))
+        # Asking for the CPU by name is the one way onto it.
+        state = init_state(torch.Generator().manual_seed(0), device="cpu")
+        _, loss = step(state, torch.zeros((2, 9), dtype=torch.long))
+        assert loss.device.type == "cpu"
+    assert generate(params, prompt, cfg, 2, device="cpu").shape == (1, 2)
 
 
 def test_driver_entry_points_raise_without_cuda(monkeypatch):
