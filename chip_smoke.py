@@ -66,6 +66,14 @@ port's paths and checks what comes out:
   experts' partial outputs summed on the all-reduce kernel), held against
   the single-device step and against a faulty control, every copy the
   kernel writes bitwise the same;
+* speculative decoding: the flagship through ``generate_lookahead``
+  (prompt lookup, 6 drafted tokens a verify forward, a 3-token key) on a
+  repetitive and a random prompt at batch 8 and 1, which launches no
+  kernel (the verify forwards and the prefill take the dense cached
+  attention): bf16 tokens greedy under a teacher-forced forward, float32
+  tokens equal to ``generate``'s on the flash-decode kernel but at a
+  printed near-tie, an accept-all control that must fail both checks, and
+  ms per token beside ``generate``'s;
 
 then times the paths and the kernels, and prints:
 
@@ -75,8 +83,9 @@ then times the paths and the kernels, and prints:
   long-context phase; every kernel ``sharded_launches``, on the
   data-parallel phase, ``tp_launches``, on the tensor-parallel phase,
   ``pipeline_launches``, on the pipeline phase, ``halo_launches``, on
-  the halo phase, and ``moe_launches``, on the Mixture-of-Experts phase,
-  checked against the count worked out from the code),
+  the halo phase, ``moe_launches``, on the Mixture-of-Experts phase, and
+  ``speculative_launches``, on the speculative phase, checked against the
+  count worked out from the code),
   its largest error against the plain version, and
   its time beside its bound, the plain version's time and one PyTorch
   library call's time;
@@ -291,6 +300,35 @@ EP_PARAM_REL = 6e-1
 # Measured (same card): a gap of 9.9e-8 with no decision of 131,072
 # changed; 1e-4 leaves room for a few flips.
 MOE_F32_LOSS_RTOL = 1e-4
+
+# Speculative decoding (phase 14): generate_lookahead at the flagship's
+# widths and depth on a config of its own whose max_seq holds the draft's
+# overhang (phase 5's cfg keeps 256: kernel 4's reported row is read at
+# its n_valid 255), with serve.py's defaults: SPEC_DRAFT_LEN drafted tokens
+# verified a forward, an SPEC_NGRAM-token lookup key. Prompts from a seed:
+# each row an SPEC_PHRASE-token phrase tiled to PROMPT_LEN (as
+# examples/serve.py builds its prompt), and uniformly random rows.
+SPEC_DRAFT_LEN = 6
+SPEC_NGRAM = 3
+SPEC_PHRASE = 8
+SPEC_REPEATS = 3
+# float32, TF32 off: generate (kernel 4 on each one-query step) and the
+# speculative path (dense attention over m + 1 queries) differ by summation
+# order alone, so their tokens are equal unless two logits sit within
+# rounding of each other. A first divergence passes only where one
+# teacher-forced float32 dense forward of the shared prefix puts both
+# diverging tokens within SPEC_FP32_TIE of the row's largest logit:
+# SLICE_LOGITS_ATOL, the float32 logit gap phase 3 allows between kernel 4
+# and dense decode.
+SPEC_FP32_TIE = 1e-3
+# bf16: every token of both outputs, the speculative path's and
+# generate's, must be greedy under one teacher-forced bf16 dense forward of
+# prompt + output: its logit within SPEC_BF16_TIE of its row's largest.
+# The three paths round activations to bf16 at other points (one query, m +
+# 1 queries over a cache, the whole sequence at once) through 8 layers,
+# and the logits, about N(0, 1) over 8192 tokens (a largest near 3.8),
+# are bf16 (one ulp is 2**-6 between 2 and 4).
+SPEC_BF16_TIE = 0.25
 
 N_REQUESTS = 3
 BATCH = 8
@@ -3117,6 +3155,228 @@ def moe_slice(dev, card, dense_ms):
     return main_counts
 
 
+def spec_slice(dev, card):
+    """Phase 14: prompt-lookup speculative decoding (``generate_lookahead``)
+    at the flagship's widths and depth, SPEC_DRAFT_LEN drafted tokens a
+    verify forward, an SPEC_NGRAM-token lookup key. Main path, counted
+    alone: the repetitive and the random prompt at batch BATCH and 1
+    (bf16), every kernel's launches read just after; each verify forward
+    feeds m + 1 queries and the prefill a whole prompt, so both take the
+    dense cached attention and the count from the code is 0 for every
+    kernel. The verify forwards are counted by wrapping
+    ``models.generate._forward_cached``. Then, outside the count: every
+    bf16 output greedy under one teacher-forced bf16 dense forward (each
+    token within SPEC_BF16_TIE of its row's largest logit), beside its
+    agreement with ``generate``; float32 tokens equal to ``generate``'s on
+    kernel 4, a first divergence allowed only at a printed near-tie
+    (SPEC_FP32_TIE); the accept-all control (``speculative._accepted``
+    patched to commit every draft) on the random prompt, which must fail
+    both checks; ms per token beside ``generate``'s over SPEC_REPEATS
+    interleaved repeats. Returns {kernel: launches on the main path}."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from mpi_tpu_torch.models import (forward, generate, generate_lookahead,
+                                      init_params)
+    from mpi_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
+                                             flash_fwd)
+    from mpi_tpu_torch.ops.decode_attention import flash_decode_attention
+    from mpi_tpu_torch.ops.ring_collectives import (ring_allgather,
+                                                    ring_allreduce)
+    from mpi_tpu_torch.parallel import sendrecv
+    from mpi_tpu_torch.serve import flagship_config
+
+    gmod = importlib.import_module("mpi_tpu_torch.models.generate")
+    smod = importlib.import_module("mpi_tpu_torch.models.speculative")
+    wrappers = {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
+                "flash_bwd_dkv": flash_bwd_dkv,
+                "flash_decode_attention": flash_decode_attention,
+                "ring_allgather": ring_allgather,
+                "ring_allreduce": ring_allreduce, "sendrecv": sendrecv}
+    m, ngram = SPEC_DRAFT_LEN, SPEC_NGRAM
+    max_seq = PROMPT_LEN + NEW_TOKENS + m + 1
+    cfg = flagship_config(max_seq=max_seq)
+    cfg32 = flagship_config(dtype=torch.float32, max_seq=max_seq)
+    rng = np.random.default_rng(14)
+    phrases = rng.integers(0, cfg.vocab, (BATCH, SPEC_PHRASE))
+    prompts = {
+        "repetitive": torch.from_numpy(
+            np.tile(phrases, -(-PROMPT_LEN // SPEC_PHRASE))[:, :PROMPT_LEN]),
+        "random": torch.from_numpy(
+            rng.integers(0, cfg.vocab, (BATCH, PROMPT_LEN)))}
+    runs = [(name, b) for name in prompts for b in (BATCH, 1)]
+
+    def spec_call(p, c, key):
+        return generate_lookahead(p, prompts[key[0]][:key[1]], c, NEW_TOKENS,
+                                  draft_len=m, ngram=ngram)
+
+    def gen_call(p, c, key):
+        return generate(p, prompts[key[0]][:key[1]], c, NEW_TOKENS)
+
+    # ---- the main path, counted alone ------------------------------------
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    verifies = [0]
+    sound_forward = gmod._forward_cached
+
+    def counted(p, tokens, cache, n_valid, c):
+        verifies[0] += n_valid > 0  # the prefill runs at n_valid 0
+        return sound_forward(p, tokens, cache, n_valid, c)
+
+    for w in wrappers.values():
+        w.launches = 0
+    spec, forwards = {}, {}
+    gmod._forward_cached = counted
+    try:
+        for key in runs:
+            before = verifies[0]
+            spec[key] = spec_call(params, cfg, key)
+            forwards[key] = verifies[0] - before
+    finally:
+        gmod._forward_cached = sound_forward
+    torch.cuda.synchronize()
+    main_counts = {name: w.launches for name, w in wrappers.items()}
+    check(all(n == 0 for n in main_counts.values()),
+          f"speculative path launched kernels {main_counts}, want none "
+          f"(dense verify and prefill, counted from the code)")
+    for (name, b), toks in spec.items():
+        check(tuple(toks.shape) == (b, NEW_TOKENS) and
+              toks.dtype == torch.int64 and toks.device.type == "cuda" and
+              bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+              f"speculative {name} batch {b}: tokens {toks.dtype} "
+              f"{tuple(toks.shape)} on {toks.device}, or outside the vocab")
+        n = forwards[name, b]
+        print(f"speculative {name} prompt, batch {b}: {n} verify forwards "
+              f"for {b * NEW_TOKENS} tokens ({b} rows one after another): "
+              f"{b * NEW_TOKENS / n!r} tokens committed a forward, "
+              f"{(b * NEW_TOKENS - n) / n!r} of them accepted drafts "
+              f"(plain decode: 1 and 0)")
+    print(f"speculative phase launches (main path): {main_counts}")
+
+    # ---- bf16: teacher-forced greedy, agreement with generate -------------
+    def greedy_gaps(p, c, prompt, out):
+        """(b, NEW_TOKENS) float32: how far each output token's logit lies
+        below its row's largest under one teacher-forced dense forward of
+        prompt + output."""
+        seq = torch.cat([prompt.to(dev), out], dim=1)
+        with torch.no_grad():
+            logits = forward(p, seq[:, :-1], c)[:, PROMPT_LEN - 1:].float()
+        picked = logits.gather(-1, out[..., None])[..., 0]
+        return logits.max(-1).values - picked
+
+    def first_divergence(a, b):
+        """(row, position) of the first token where ``a`` and ``b``
+        differ, or None."""
+        rows = (a != b).any(1).nonzero()
+        if not len(rows):
+            return None
+        r = int(rows[0, 0])
+        return r, int((a[r] != b[r]).nonzero()[0, 0])
+
+    ref = {key: gen_call(params, cfg, key) for key in runs}
+    for key in runs:
+        sg = greedy_gaps(params, cfg, prompts[key[0]][:key[1]], spec[key])
+        rg = greedy_gaps(params, cfg, prompts[key[0]][:key[1]], ref[key])
+        where = first_divergence(spec[key], ref[key])
+        div = "none" if where is None else (
+            f"row {where[0]} position {where[1]}: speculative token "
+            f"{int(spec[key][where])} ({float(sg[where])!r} below the row's "
+            f"largest), generate's {int(ref[key][where])} "
+            f"({float(rg[where])!r} below)")
+        print(f"speculative {key[0]} prompt, batch {key[1]}, bf16: largest "
+              f"gap to the teacher-forced row max {float(sg.max())!r} "
+              f"(generate's {float(rg.max())!r}; limit {SPEC_BF16_TIE}); "
+              f"agreement with generate "
+              f"{float((spec[key] == ref[key]).float().mean())!r}; first "
+              f"divergence {div}")
+        check(float(sg.max()) <= SPEC_BF16_TIE and
+              float(rg.max()) <= SPEC_BF16_TIE,
+              f"speculative {key}: an output token lies more than "
+              f"{SPEC_BF16_TIE} below its teacher-forced row max "
+              f"(speculative {float(sg.max())}, generate {float(rg.max())})")
+
+    # ---- float32: tokens equal to generate's on kernel 4 ------------------
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on: the float32 check needs full float32 products")
+    params32 = init_params(cfg32, torch.Generator().manual_seed(0))
+
+    def fp32_verdict(out, want, prompt):
+        """(every row equal to ``want`` but for a first divergence at a
+        near-tie, the divergences): at each row's first divergence, the
+        two tokens' gaps to the largest logit of one teacher-forced float32
+        dense forward of the shared prefix."""
+        seq = torch.cat([prompt.to(dev), want], dim=1)
+        with torch.no_grad():
+            logits = forward(params32, seq[:, :-1], cfg32)[:, PROMPT_LEN - 1:]
+        notes = []
+        for r in range(out.shape[0]):
+            diff = (out[r] != want[r]).nonzero()
+            if not len(diff):
+                continue
+            j = int(diff[0, 0])
+            row = logits[r, j]
+            gaps = [float(row.max() - row[t]) for t in (out[r, j], want[r, j])]
+            notes.append((r, j, int(out[r, j]), int(want[r, j]), *gaps,
+                          max(gaps) <= SPEC_FP32_TIE))
+        return all(n[-1] for n in notes), notes
+
+    ref32 = {}
+    for name in prompts:
+        key = (name, BATCH)
+        ref32[name] = gen_call(params32, cfg32, key)
+        ok, notes = fp32_verdict(spec_call(params32, cfg32, key), ref32[name],
+                                 prompts[name])
+        print(f"speculative {name} prompt, batch {BATCH}, float32: tokens "
+              f"equal to generate's (kernel 4) in {BATCH - len(notes)} of "
+              f"{BATCH} rows; first divergences (row, position, speculative "
+              f"token, generate's, their gaps to the row max, a near-tie "
+              f"within {SPEC_FP32_TIE}): {notes}")
+        check(ok, f"speculative {name} float32: a divergence from generate "
+                  f"that is no near-tie: {notes}")
+
+    # ---- the control: every draft accepted --------------------------------
+    sound_accepted = smod._accepted
+    smod._accepted = lambda draft, greedy: torch.tensor(draft.shape[0])
+    try:
+        ctrl16 = spec_call(params, cfg, ("random", BATCH))
+        ctrl32 = spec_call(params32, cfg32, ("random", BATCH))
+    finally:
+        smod._accepted = sound_accepted
+    cg = float(greedy_gaps(params, cfg, prompts["random"], ctrl16).max())
+    ok32, notes = fp32_verdict(ctrl32, ref32["random"], prompts["random"])
+    print(f"control (every draft accepted), random prompt: bf16 largest gap "
+          f"to the teacher-forced row max {cg!r} (limit {SPEC_BF16_TIE}), "
+          f"agreement with generate "
+          f"{float((ctrl16 == ref[('random', BATCH)]).float().mean())!r}; "
+          f"float32 first divergences {notes}")
+    check(cg > SPEC_BF16_TIE and not ok32,
+          f"the accept-all control passed a check: bf16 gap {cg} (limit "
+          f"{SPEC_BF16_TIE}), float32 verdict {ok32}")
+    del params32, ref32, ctrl16, ctrl32
+    torch.cuda.empty_cache()
+
+    # ---- times -------------------------------------------------------------
+    times = {key: ([], []) for key in runs}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(SPEC_REPEATS):
+        for key in runs:
+            for i, fn in enumerate((spec_call, gen_call)):
+                start.record()
+                fn(params, cfg, key)
+                end.record()
+                torch.cuda.synchronize()
+                times[key][i].append(start.elapsed_time(end) / NEW_TOKENS)
+    for (name, b), (ts, tg) in times.items():
+        print(f"speculative {name} prompt, batch {b}: generate_lookahead "
+              f"{min(ts)!r}-{max(ts)!r} ms per token, generate "
+              f"{min(tg)!r}-{max(tg)!r} (ms per position of the batch, {b} "
+              f"tokens; CUDA events, {SPEC_REPEATS} interleaved repeats)  "
+              f"[{card}]")
+    return main_counts
+
+
 def decode_times(dev, gen, card, cfg):
     """Kernel 4 at the flagship decode shape (n_valid 0, 128 and 255) and
     at a long cache of the same widths (t 8192, n_valid 8191): kernel,
@@ -3443,7 +3703,11 @@ def main() -> int:
     moe_counts = moe_slice(dev, card, step_ms)
     torch.cuda.empty_cache()
 
-    # ---- 14. result -----------------------------------------------------
+    # ---- 14. speculative decoding: prompt lookup, dense verify ----------
+    spec_counts = spec_slice(dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- 15. result -----------------------------------------------------
     source = "mpi_tpu_torch/ops/csrc/flash_attention.cu"
     kernels = []
     for name, replaces, n in zip(
@@ -3487,7 +3751,8 @@ def main() -> int:
                 "tp_launches": tp_counts.get(row["name"], 0),
                 "pipeline_launches": pp_counts.get(row["name"], 0),
                 "halo_launches": halo_counts.get(row["name"], 0),
-                "moe_launches": moe_counts.get(row["name"], 0)}
+                "moe_launches": moe_counts.get(row["name"], 0),
+                "speculative_launches": spec_counts[row["name"]]}
                for row in kernels]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -5,8 +5,9 @@ over a rank mesh's ``sp`` axis, its batch data-parallel over the ``dp``
 axis, with ZeRO-1 or FSDP as options, the model split over the ``tp``
 axis), the same blocks as a GPipe pipeline over a ``pp`` axis
 (:mod:`.pipeline_lm`), the Mixture-of-Experts FFN with its experts over
-an ``ep`` axis (:mod:`.moe`), KV-cache generation, int8 weights, and
-loading the JAX package's tree."""
+an ``ep`` axis (:mod:`.moe`), KV-cache generation with prompt-lookup
+speculative decoding (:mod:`.speculative`), int8 weights, and loading the
+JAX package's tree."""
 
 from .convert import params_from_jax
 from .generate import decode_step, generate, prefill
@@ -15,6 +16,7 @@ from .pipeline_lm import (forward_pipelined, init_pipelined_params,
                           make_pipelined_train_step, pipeline_loss_fn,
                           stack_block_params)
 from .quant import QTensor, dequantize, quantize, quantize_params
+from .speculative import generate_lookahead
 from .transformer import (TransformerConfig, forward, forward_with_aux,
                           full_params, init_params, loss_fn, make_mesh_nd,
                           make_optimizer, make_train_parts, make_train_step,
@@ -24,6 +26,7 @@ __all__ = ["TransformerConfig", "init_params", "forward", "forward_with_aux",
            "token_xent", "loss_fn", "make_optimizer", "make_train_parts",
            "make_train_step", "full_params", "rank_state", "param_specs",
            "make_mesh_nd", "prefill", "decode_step", "generate",
+           "generate_lookahead",
            "QTensor", "quantize", "dequantize", "quantize_params",
            "params_from_jax", "stack_block_params", "init_pipelined_params",
            "forward_pipelined", "pipeline_loss_fn",

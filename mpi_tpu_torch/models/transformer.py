@@ -885,23 +885,27 @@ def _moment_names(opt: torch.optim.Optimizer) -> List[str]:
     return [k for k, v in first.items() if k != "step" and torch.is_tensor(v)]
 
 
-def rank_state(state: Dict[str, Any], rank: int,
-               tp_rank: int = 0) -> Dict[str, Any]:
-    """What the rank at dp coordinate ``rank`` and tp coordinate
-    ``tp_rank`` holds of a training state: ``{"params"}`` and one entry per
-    tensor the optimizer keeps per leaf (:func:`_moment_names`; they exist
-    from the first step on), each a tree of the parameter tree's layout
-    whose leaves are views of the state's tensors: the rank's piece of a
-    leaf that dp or tp shards, the leaf whole where neither does. These
-    are the shapes of the JAX package's shards on that rank's device; an
-    optimizer tensor not of its leaf's shape (adafactor's factored
-    moments) is given whole, as zero1 and fsdp keep it."""
+def rank_state(state: Dict[str, Any], rank: int, tp_rank: int = 0,
+               ep_rank: int = 0) -> Dict[str, Any]:
+    """What the rank at dp coordinate ``rank``, tp coordinate ``tp_rank``
+    and ep coordinate ``ep_rank`` holds of a training state:
+    ``{"params"}`` and one entry per tensor the optimizer keeps per leaf
+    (:func:`_moment_names`; they exist from the first step on), each a
+    tree of the parameter tree's layout whose leaves are views of the
+    state's tensors: the rank's piece of a leaf that dp, tp or ep shards
+    (the experts' ``w1e`` / ``w2e`` hold ``n_experts / ep`` experts a
+    rank), the leaf whole where none does. These are the shapes of the
+    JAX package's shards on that rank's device; an optimizer tensor not of
+    its leaf's shape (adafactor's factored moments) is given whole, as
+    zero1 and fsdp keep it."""
     params, opt = state["params"], state["opt"]
     layout, mesh = state.get("layout"), state.get("mesh")
     leaves = [x for g in _groups(params) for x in tree_leaves(g)]
     specs = [s for g in _groups(state["specs"]) for s in spec_leaves(g)] \
         if mesh is not None else [()] * len(leaves)
-    tp = 1 if mesh is None else mesh.shape.get("tp", 1)
+    coords = {"tp": tp_rank, "ep": ep_rank}
+    sizes = {axis: 1 if mesh is None else mesh.shape.get(axis, 1)
+             for axis in coords}
 
     def dp_piece(x, i, what):
         dim = None if layout is None else layout.leaves[i].dim
@@ -921,12 +925,14 @@ def rank_state(state: Dict[str, Any], rank: int,
     def held(x, i, what):
         piece = dp_piece(x, i, what)
         shape = x.shape if layout is None else layout.leaves[i].shape
-        dim = spec_dim(specs[i], "tp")
-        if dim is None or piece.dim() != len(shape) or \
-                piece.shape[dim] != shape[dim]:
-            return piece
-        k = piece.shape[dim] // tp
-        return piece.narrow(dim, tp_rank * k, k)
+        for axis, coord in coords.items():
+            dim = spec_dim(specs[i], axis)
+            if dim is None or piece.dim() != len(shape) or \
+                    piece.shape[dim] != shape[dim]:
+                continue
+            k = piece.shape[dim] // sizes[axis]
+            piece = piece.narrow(dim, coord * k, k)
+        return piece
 
     return {what: _regroup(params, [held(x, i, what)
                                     for i, x in enumerate(leaves)])

@@ -9,7 +9,7 @@ devices::
 
 ``--mpi-backend`` (env ``MPI_TPU_BACKEND``): ``cuda``, the default; the
 JAX package's ``tcp``, ``xla`` and ``hybrid`` have no port yet (ROADMAP.md
-Queue 1, item 10) and raise. ``--mpi-ranks`` (env ``MPI_TPU_RANKS``): the
+Queue 1, item 9) and raise. ``--mpi-ranks`` (env ``MPI_TPU_RANKS``): the
 rank count, shared round-robin over the visible CUDA devices (default: one
 rank per device). ``--mpi-device``: put every rank on this device, as
 ``device="cpu"`` does for the port's other entry points; without it the
@@ -64,7 +64,7 @@ def selected_backend(argv: Optional[Sequence[str]] = None) -> str:
         raise api.MpiError(
             f"mpi_tpu_torch: --{FLAG_BACKEND} {choice!r} is not ported; the "
             f"port has the cuda driver only (the tcp, xla and hybrid drivers "
-            f"are ROADMAP.md Queue 1, item 10)")
+            f"are ROADMAP.md Queue 1, item 9)")
     return choice
 
 

@@ -1,18 +1,22 @@
 """Serve the flagship decoder LM with KV-cache decode on the GPU.
 
-The port's counterpart of parts 1-2 of ``examples/serve.py``: greedy
-KV-cache decode, then the same with weight-only int8 weights, at the
-flagship decode configuration (d_model 1024, 8 layers, 8 heads of 128,
-d_ff 4096, vocab 8192, batch 8, 128 prompt and 128 new tokens, bf16), with
-each decode step's attention in the flash-decode kernel. Weights are random,
-drawn from ``--seed``. Prints the time of each ``generate`` call and its
-tokens per second. Speculative decoding and the state-space model are not
-ported yet.
+The port's counterpart of parts 1-3 of ``examples/serve.py``: greedy
+KV-cache decode, the same with weight-only int8 weights, and prompt-lookup
+speculative decoding (``generate_lookahead``, ``--draft-len`` tokens
+verified a forward, an ``--ngram`` lookup key), at the flagship decode
+configuration (d_model 1024, 8 layers, 8 heads of 128, d_ff 4096, vocab
+8192, batch 8, 128 prompt and 128 new tokens, bf16), with each decode
+step's attention in the flash-decode kernel (the speculative path's verify
+forwards take the dense cached attention). Weights are random, drawn from
+``--seed``. Prints the time of each call and its tokens per second, and the
+int8 and speculative tokens' agreement with bf16 greedy. The state-space
+model is not ported yet.
 
 Run::
 
     python -m mpi_tpu_torch.serve                 # on the CUDA device
     python -m mpi_tpu_torch.serve --layers 2 --device cpu   # plain path
+    python -m mpi_tpu_torch.serve --draft-len 4 --ngram 2
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ from typing import Optional
 
 import torch
 
-from .models import TransformerConfig, generate, init_params, quantize_params
+from .models import (TransformerConfig, generate, generate_lookahead,
+                     init_params, quantize_params)
 from .utils.platform import resolve_device
 
 __all__ = ["flagship_config", "main"]
@@ -63,24 +68,31 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--tokens", type=int, default=128,
                     help="new tokens to generate")
     ap.add_argument("--layers", type=int, default=8)
+    ap.add_argument("--draft-len", type=int, default=6,
+                    help="drafted tokens verified a speculative forward")
+    ap.add_argument("--ngram", type=int, default=3,
+                    help="the speculative lookup key's length")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    # The speculative rounds write up to draft_len + 1 positions past the
+    # last committed token.
     cfg = flagship_config(n_layers=args.layers,
-                          max_seq=args.prompt_len + args.tokens)
+                          max_seq=args.prompt_len + args.tokens
+                          + args.draft_len + 1)
     gen = torch.Generator().manual_seed(args.seed)
     params = init_params(cfg, gen, dev)
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=gen).to(dev)
     n_tok = args.batch * args.tokens
 
-    def run(label, p):
-        generate(p, prompt, cfg, args.tokens, device=dev)  # warm-up
+    def run(label, p, fn=generate, **kw):
+        fn(p, prompt, cfg, args.tokens, device=dev, **kw)  # warm-up
         out, ms = _timed_ms(
-            lambda: generate(p, prompt, cfg, args.tokens, device=dev), dev)
+            lambda: fn(p, prompt, cfg, args.tokens, device=dev, **kw), dev)
         print(f"{label:<24} {ms:9.2f} ms   {ms / args.tokens:7.3f} ms/step"
               f"   {n_tok / ms * 1e3:9.0f} tok/s")
         return out
@@ -91,11 +103,15 @@ def main(argv: Optional[list] = None) -> int:
           f"layers={args.layers}")
     ref = run("greedy decode", params)
     q = run("greedy decode (int8)", quantize_params(params))
-    valid = bool(((q >= 0) & (q < cfg.vocab)).all() and
-                 ((ref >= 0) & (ref < cfg.vocab)).all())
+    spec = run("speculative decode", params, generate_lookahead,
+               draft_len=args.draft_len, ngram=args.ngram)
+    valid = all(bool(((t >= 0) & (t < cfg.vocab)).all())
+                for t in (ref, q, spec))
     agree = float((q == ref).float().mean())
+    spec_agree = float((spec == ref).float().mean())
     print(f"outputs in vocab: {valid}   int8 agreement with bf16 greedy: "
-          f"{agree:.1%}")
+          f"{agree:.1%}   speculative agreement with bf16 greedy: "
+          f"{spec_agree:.1%}")
     return 0 if valid else 1
 
 

@@ -707,7 +707,7 @@ def test_bounce_two_ranks_small():
 
 
 def test_run_main_refuses_other_backends():
-    with pytest.raises(M.MpiError, match="item 10"):
+    with pytest.raises(M.MpiError, match="item 9"):
         M.run_main(lambda: None, ["--mpi-backend", "tcp"])
 
 

@@ -36,7 +36,8 @@ from jax.sharding import PartitionSpec as P  # noqa: E402
 from mpi_tpu.models import TransformerConfig as JaxConfig  # noqa: E402
 from mpi_tpu.models import make_train_step as jax_make_train_step  # noqa
 from mpi_tpu_torch.models import (TransformerConfig, loss_fn,  # noqa: E402
-                                  make_train_step, params_from_jax)
+                                  make_train_step, params_from_jax,
+                                  rank_state)
 from mpi_tpu_torch.ops import ring_collectives  # noqa: E402
 from mpi_tpu_torch.ops.ring_collectives import ring_allreduce  # noqa: E402
 from mpi_tpu_torch.parallel import RankMesh  # noqa: E402
@@ -78,7 +79,9 @@ def _walk(port_tree, jax_tree):
 @pytest.fixture(scope="module")
 def jax_runs():
     """A cache (mesh, top_k, grad_accum) -> (initial params, the losses of
-    STEPS steps, the parameters after them), from JAX's step."""
+    STEPS steps, the parameters after them, the shape of device 0's shard
+    of each parameter and of each AdamW first moment), from JAX's
+    step."""
     cache = {}
 
     def get(mesh_name, top_k, grad_accum):
@@ -98,8 +101,14 @@ def jax_runs():
             for _ in range(STEPS):
                 state, loss = step(state, batch)
                 losses.append(float(loss))
+
+            def shard_shape(x):
+                return tuple(x.addressable_shards[0].data.shape)
+
             cache[key] = (params0, losses,
-                          jax.tree.map(np.asarray, state["params"]))
+                          jax.tree.map(np.asarray, state["params"]),
+                          jax.tree.map(shard_shape, state["params"]),
+                          jax.tree.map(shard_shape, state["opt"][0].mu))
         return cache[key]
 
     return get
@@ -119,6 +128,48 @@ def _port_run(params0, mesh_name, top_k, grad_accum, tokens=None):
     return state, losses
 
 
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+def test_rank_shards_have_jax_shapes(jax_runs, mesh_name):
+    """What each (dp, ep) coordinate holds, every parameter and every AdamW
+    moment, has the shape of JAX's shard on device 0 after the steps (the
+    split is even, so every device's shard has that shape): ``w1e`` /
+    ``w2e`` and their moments hold n_experts / ep experts, the rest whole.
+    The router is the one exception: its spec is replicated (``moe_specs``)
+    and the port gives it whole, where JAX's jitted step, whose output
+    shardings are left to GSPMD, returns it split over ep along its
+    experts."""
+    params0, _, _, param_shapes, mu_shapes = jax_runs(mesh_name, 2, 1)
+    state, _ = _port_run(params0, mesh_name, 2, 1)
+    dp, ep = MESHES[mesh_name]
+    expert_shapes = set()
+    for r in range(dp):
+        for e in range(ep):
+            held = rank_state(state, r, ep_rank=e)
+            assert set(held) == {"params", "exp_avg", "exp_avg_sq"}
+            for what, want_tree in (("params", param_shapes),
+                                    ("exp_avg", mu_shapes),
+                                    ("exp_avg_sq", mu_shapes)):
+                routers = [blk["moe"].pop("router")
+                           for blk in held[what]["blocks"]]
+                assert all(tuple(x.shape) == (MODEL["d_model"],
+                                              MODEL["n_experts"])
+                           for x in routers), (what, r, e)
+                want_tree = {**want_tree, "blocks": [
+                    {**blk, "moe": {k: v for k, v in blk["moe"].items()
+                                    if k != "router"}}
+                    for blk in want_tree["blocks"]]}
+                for got, want in _walk(held[what], want_tree):
+                    assert tuple(got.shape) == want, (what, r, e)
+            w1e = held["params"]["blocks"][0]["moe"]["w1e"]
+            expert_shapes.add(tuple(w1e.shape))
+            # Coordinate e holds experts [e·E/ep, (e+1)·E/ep).
+            k = MODEL["n_experts"] // ep
+            full = state["params"]["blocks"][0]["moe"]["w1e"]
+            assert torch.equal(w1e, full[e * k:(e + 1) * k])
+    assert expert_shapes == {(MODEL["n_experts"] // ep, MODEL["d_model"],
+                              MODEL["d_ff"])}
+
+
 def _misses(got, want):
     """How far each loss falls outside LOSS of JAX's (> 0: outside)."""
     return [abs(g - w) - (LOSS["atol"] + LOSS["rtol"] * abs(w))
@@ -129,8 +180,8 @@ def _misses(got, want):
 def test_three_steps_match_jax(jax_runs, mesh_name, top_k, grad_accum):
     """Losses of three AdamW steps and the parameters after them against
     JAX's step on the same mesh shape."""
-    params0, want_losses, want_params = jax_runs(mesh_name, top_k,
-                                                 grad_accum)
+    params0, want_losses, want_params, _, _ = jax_runs(mesh_name, top_k,
+                                                       grad_accum)
     state, losses = _port_run(params0, mesh_name, top_k, grad_accum)
     np.testing.assert_allclose(losses, want_losses, **LOSS)
     for got, want in _walk(state["params"], want_params):
@@ -146,7 +197,7 @@ def test_per_rank_aux_misses_jax(jax_runs, monkeypatch):
                           self.rank_meshes[r])
 
     monkeypatch.setattr(transformer._DataParallel, "_rank_losses", per_rank)
-    params0, want, _ = jax_runs("dp2_ep4", 2, 1)
+    params0, want = jax_runs("dp2_ep4", 2, 1)[:2]
     _, losses = _port_run(params0, "dp2_ep4", 2, 1)
     assert max(_misses(losses, want)) > 0, (losses, want)
 
@@ -157,7 +208,7 @@ def test_per_rank_microbatch_rows_miss_jax(jax_runs):
     to the step as a permuted batch, miss JAX's losses by more than LOSS:
     with experts each microbatch's penalty depends on which rows share
     it."""
-    params0, want, _ = jax_runs("dp2_ep4", 1, 2)
+    params0, want = jax_runs("dp2_ep4", 1, 2)[:2]
     b, dp, k = 4, 2, 2
     # New split: microbatch j, rank r holds rows j·b/k + r·b/(k·dp). Place
     # the old split's (r, j) rows there.

@@ -28,7 +28,8 @@ import pytest
 import torch
 
 from mpi_tpu_torch import train
-from mpi_tpu_torch.models import (TransformerConfig, generate, init_params,
+from mpi_tpu_torch.models import (TransformerConfig, generate,
+                                  generate_lookahead, init_params,
                                   init_moe_params, make_train_step)
 from mpi_tpu_torch.ops import _build
 from mpi_tpu_torch.ops.attention import (flash_attention, flash_bwd_dkv,
@@ -69,7 +70,7 @@ def test_importing_the_port_loads_no_jax():
             "mpi_tpu_torch.parallel.ring_attention, "
             "mpi_tpu_torch.parallel.ulysses, "
             "mpi_tpu_torch.parallel.cache_parallel, "
-            "mpi_tpu_torch.models.moe, "
+            "mpi_tpu_torch.models.moe, mpi_tpu_torch.models.speculative, "
             "mpi_tpu_torch.collectives_generic, mpi_tpu_torch.runner, "
             "mpi_tpu_torch.backends.cuda, mpi_tpu_torch.backends.rendezvous, "
             "mpi_tpu_torch.examples.helloworld, "
@@ -99,6 +100,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         generate(params, prompt, CFG, 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate_lookahead(params, prompt, CFG, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params(CFG, torch.Generator().manual_seed(0))
     init_state, _ = make_train_step(CFG)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -108,6 +111,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                     "--steps", "2"])
     # Asking for the CPU by name is the one way onto it.
     assert generate(params, prompt, CFG, 2, device="cpu").shape == (1, 2)
+    assert generate_lookahead(params, prompt, CFG, 2,
+                              device="cpu").shape == (1, 2)
     assert set(init_state(torch.Generator().manual_seed(0),
                           device="cpu")) == {"params", "opt"}
 
@@ -209,6 +214,13 @@ def test_generate_refuses_params_on_another_device():
     with pytest.raises(ValueError, match="params lie on"):
         generate(params, torch.zeros((1, 4), dtype=torch.long), CFG, 2,
                  device="meta")
+
+
+def test_generate_lookahead_refuses_params_on_another_device():
+    params = init_params(CFG, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match="params lie on"):
+        generate_lookahead(params, torch.zeros((1, 4), dtype=torch.long),
+                           CFG, 2, device="meta")
 
 
 def test_decode_wrapper_never_falls_back_off_the_cpu():
