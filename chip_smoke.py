@@ -74,6 +74,14 @@ port's paths and checks what comes out:
   tokens equal to ``generate``'s on the flash-decode kernel but at a
   printed near-tie, an accept-all control that must fail both checks, and
   ms per token beside ``generate``'s;
+* LoRA fine-tuning: rank-8 q/v adapters over the flagship's frozen base,
+  ten AdamW steps (the flash kernels) and three over 8 tp ranks (the
+  all-reduce kernel too), the trained merged tree served through
+  ``generate`` (the flash-decode kernel; teacher-forced against dense
+  decode, int8 weights): the base keeps every bit and gets no gradient,
+  the merged tree's loss is the next step's, fresh adapters leave the
+  forward bitwise the base's, flash against dense attention with a faulty
+  control that must miss, and ms per step beside the full step's;
 
 then times the paths and the kernels, and prints:
 
@@ -84,8 +92,9 @@ then times the paths and the kernels, and prints:
   data-parallel phase, ``tp_launches``, on the tensor-parallel phase,
   ``pipeline_launches``, on the pipeline phase, ``halo_launches``, on
   the halo phase, ``moe_launches``, on the Mixture-of-Experts phase, and
-  ``speculative_launches``, on the speculative phase, checked against the
-  count worked out from the code),
+  ``speculative_launches``, on the speculative phase, and
+  ``lora_launches``, on the LoRA phase, checked against the count worked
+  out from the code),
   its largest error against the plain version, and
   its time beside its bound, the plain version's time and one PyTorch
   library call's time;
@@ -329,6 +338,44 @@ SPEC_FP32_TIE = 1e-3
 # and the logits, about N(0, 1) over 8192 tokens (a largest near 3.8),
 # are bf16 (one ulp is 2**-6 between 2 and 4).
 SPEC_BF16_TIE = 0.25
+
+# LoRA fine-tuning (phase 15): rank-LORA_RANK adapters on wq and wv,
+# alpha LORA_ALPHA, AdamW at LORA_LR (examples/train.py --lora's rate)
+# over the flagship training configuration's frozen base, from one seeded
+# base, one seeded set of adapters and one seeded batch.
+LORA_RANK = 8
+LORA_ALPHA = 16.0
+LORA_LR = 1e-2
+LORA_STEPS = 10
+LORA_TP_STEPS = 3
+LORA_TIMED_STEPS = 5
+LORA_REPEATS = 3
+# The merged tree's loss against the next step's, which merges the same
+# adapters inside the step: tests/test_lora.py's rel 1e-5 (the same
+# products on the same inputs; 0 expected).
+LORA_MERGE_RTOL = 1e-5
+# LoRA steps with the flash kernels against the same steps with dense
+# attention, bf16 activations, over the first LORA_DENSE_STEPS of (b)'s
+# steps: the two round attention at other points, and AdamW at 1e-2 turns
+# a flipped sign of a tiny adapter gradient into a 2e-2 move, so the two
+# trajectories part as they go. Measured (NVIDIA H100 80GB HBM3, 700.00
+# W): relative gaps 4.1e-6, 3.4e-6, 3.1e-5 over steps 0-2, growing to
+# 8.5e-5 by step 4 and 1.2e-2 by step 9; the faulty control (each delta
+# scaled by rank / alpha, a quarter of alpha / rank's at rank 8, alpha 16;
+# step 0 equal by construction, B = 0) missed dense by 1.4e-2 and 4.9e-3
+# at steps 1-2 and by 1.5e-3 to 1.8e-2 over steps 1-9. So ten steps cannot
+# tell the control from rounding, and three can: LORA_LOSS_RTOL sits 13
+# times over the largest sound gap of steps 0-2 and 12 times under the
+# control's least of steps 1-2, and the phase checks that the control
+# still falls outside it. That the parting is rounding and not a kernel
+# fault, (d)'s float32 witness shows (TF32 off, the same LORA_STEPS steps
+# at LORA_LR): flash against dense within TRAIN_LOSS_RTOL at every step
+# (measured: 2.8e-6 at most, the control 1.2e-3 at least from step 1),
+# and the adapter gradients at the tenth step's adapters, which hold the
+# size of kernels 2-3's gradients, within TRAIN_GRAD_REL of each leaf's
+# largest (measured 1.4e-5, the control's 1.2).
+LORA_DENSE_STEPS = 3
+LORA_LOSS_RTOL = 4e-4
 
 N_REQUESTS = 3
 BATCH = 8
@@ -1703,6 +1750,15 @@ def loss_gaps(got, ref):
     return [abs(a - b) / abs(b) for a, b in zip(got, ref)]
 
 
+def opt_bytes(opt):
+    """Bytes of the tensors ``opt`` keeps per leaf (its moments; the step
+    counts aside)."""
+    import torch
+
+    return sum(t.numel() * t.element_size() for held in opt.state.values()
+               for k, t in held.items() if k != "step" and torch.is_tensor(t))
+
+
 def dp_launches(mode, n, layers, rest, remat=False):
     """Launches of kernels 1, 2, 3, 5 and 6 in one training step, counted
     from the code (``models/transformer.py``, ``_DataParallel``): each of
@@ -2156,12 +2212,6 @@ def tp_slice(dev, card, one=None):
 
     p0 = leaves({"params": params0})
 
-    def opt_bytes(state):
-        return sum(t.numel() * t.element_size()
-                   for held in state["opt"].state.values()
-                   for k, t in held.items()
-                   if k != "step" and torch.is_tensor(t))
-
     one_k = [layers, layers, layers, 0, 0]
     tp_k = [layers, layers, layers, 0, tp_launches(layers)]
     if one is None:
@@ -2194,7 +2244,7 @@ def tp_slice(dev, card, one=None):
           f"hold copies that differ from copy 0 (want {TP_STEPS * tp_k[4]} "
           f"results, every copy the same bits)")
     full_b = [x.clone() for x in leaves(state_b)]
-    adamw_bytes = opt_bytes(state_b)
+    adamw_bytes = opt_bytes(state_b["opt"])
 
     sched = dict(learning_rate=TP_OPT_LR, warmup_steps=1,
                  total_steps=TP_STEPS)
@@ -2205,7 +2255,7 @@ def tp_slice(dev, card, one=None):
                                      {"optimizer": name, **sched}, want)
             opt_runs[name, where] = (olosses, [x.clone() for x in
                                                leaves(ostate)],
-                                     opt_bytes(ostate))
+                                     opt_bytes(ostate["opt"]))
             del ostate
     torch.cuda.empty_cache()
 
@@ -3377,6 +3427,337 @@ def spec_slice(dev, card):
     return main_counts
 
 
+def lora_tp_launches(layers):
+    """Launches of kernel 6 in one LoRA step over a tp mesh, counted from
+    the code: :func:`tp_launches` less one, the copy before layer 0's
+    q/k/v, whose backward never runs (its input, the frozen embedding's
+    rows, needs no gradient)."""
+    return tp_launches(layers) - 1
+
+
+def lora_slice(dev, card, full_ms):
+    """Phase 15: LoRA fine-tuning (``models/lora.py``) at the flagship
+    training configuration: rank-LORA_RANK q/v adapters, alpha LORA_ALPHA,
+    AdamW at LORA_LR over a frozen base from a seed. Main path, counted
+    alone: (b) LORA_STEPS steps on one fixed batch (kernels 1-3), (e)
+    LORA_TP_STEPS steps over a (1, 1, TP_RANKS) tp mesh (kernel 6 as
+    well), (f) the trained merged tree served through ``generate`` (kernel
+    4), every kernel's launches against the count from the code. Then,
+    outside the count: (a) with fresh adapters the merged tree's forward
+    bitwise the base's; (b) the loss falls, the base keeps every bit and
+    gets no ``.grad``, the optimizer's moments are the adapters' alone;
+    (c) the merged tree's loss equals the next step's; (d) the first
+    LORA_DENSE_STEPS steps with dense attention within LORA_LOSS_RTOL of
+    the flash steps, and a faulty control (each delta scaled by rank /
+    alpha) outside it; in float32, LORA_STEPS steps within
+    TRAIN_LOSS_RTOL and the adapter gradients within TRAIN_GRAD_REL, the
+    control outside both; (e) tp within
+    TP_LOSS_RTOL of one device; (f) float32 teacher-forced logits of
+    kernel 4 against dense decode within SLICE_LOGITS_ATOL and int8 tokens
+    in the vocab; (g) ms per LoRA step beside the full step's, interleaved,
+    their optimizer bytes, and a profile of a LoRA step. ``full_ms`` is
+    phase 5's full step. Returns {kernel: launches on the main path}."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from mpi_tpu_torch.models import (count_params, forward, generate,
+                                      init_params, lora_init, loss_fn,
+                                      make_lora_train_step, make_train_step,
+                                      merge_lora, quantize_params)
+    from mpi_tpu_torch.models.generate import decode_step, prefill
+    from mpi_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
+                                             flash_fwd)
+    from mpi_tpu_torch.ops.decode_attention import flash_decode_attention
+    from mpi_tpu_torch.ops.ring_collectives import (ring_allgather,
+                                                    ring_allreduce)
+    from mpi_tpu_torch.parallel import RankMesh, sendrecv
+    from mpi_tpu_torch.parallel.zero import tree_leaves
+    from mpi_tpu_torch.serve import flagship_config
+    from mpi_tpu_torch.train import flagship_train_config
+
+    lmod = importlib.import_module("mpi_tpu_torch.models.lora")
+    wrappers = {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
+                "flash_bwd_dkv": flash_bwd_dkv,
+                "flash_decode_attention": flash_decode_attention,
+                "ring_allgather": ring_allgather,
+                "ring_allreduce": ring_allreduce, "sendrecv": sendrecv}
+    names = list(wrappers)
+
+    def counts():
+        return [wrappers[k].launches for k in names]
+
+    cfg = flagship_train_config()
+    layers = cfg.n_layers
+    rng = np.random.default_rng(15)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (8, cfg.max_seq))).to(dev)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           (BATCH, PROMPT_LEN))).to(dev)
+    base = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    base_bits = [x.clone() for x in tree_leaves(base)]
+
+    def run(label, c, mesh, steps, want):
+        """``steps`` LoRA steps from fresh adapters (seed 1) over the
+        frozen base: (state, step, losses); each step's launches of
+        kernels 1-4, 5, 6, 7 must equal ``want``."""
+        init_state, step = make_lora_train_step(
+            c, base, rank=LORA_RANK, alpha=LORA_ALPHA, mesh=mesh,
+            learning_rate=LORA_LR)
+        state = init_state(torch.Generator().manual_seed(1))
+        losses = []
+        for i in range(steps):
+            before = counts()
+            state, loss = step(state, tokens)
+            got = [a - b for a, b in zip(counts(), before)]
+            check(got == want,
+                  f"{label} step {i}: kernels {names} launched {got} times, "
+                  f"want {want} (counted from the code)")
+            losses.append(loss)
+        losses = [float(x) for x in losses]
+        check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+        return state, step, losses
+
+    one_k = [layers, layers, layers, 0, 0, 0, 0]
+    tp_k = [layers, layers, layers, 0, 0, lora_tp_launches(layers), 0]
+    scfg = flagship_config(max_seq=PROMPT_LEN + NEW_TOKENS)
+
+    # ---- the main path: (b), (e) and (f), counted alone -------------------
+    for w in wrappers.values():
+        w.launches = 0
+    state, step, losses = run("(b)", cfg, None, LORA_STEPS, one_k)
+    tp_mesh = RankMesh([dev] * TP_RANKS, ("dp", "sp", "tp"),
+                       (1, 1, TP_RANKS))
+    _, _, tp_losses = run("(e) tp", cfg, tp_mesh, LORA_TP_STEPS, tp_k)
+    with torch.no_grad():
+        merged = merge_lora(base, state["lora"], LORA_ALPHA)
+    toks = generate(merged, prompt, scfg, NEW_TOKENS)
+    torch.cuda.synchronize()
+    main_counts = dict(zip(names, counts()))
+    flash = LORA_STEPS * layers + LORA_TP_STEPS * layers
+    want_counts = {"flash_fwd": flash, "flash_bwd_dq": flash,
+                   "flash_bwd_dkv": flash,
+                   "flash_decode_attention": layers * (NEW_TOKENS - 1),
+                   "ring_allgather": 0,
+                   "ring_allreduce": LORA_TP_STEPS * tp_k[5], "sendrecv": 0}
+    check(main_counts == want_counts,
+          f"LoRA phase launches {main_counts}, want {want_counts} (counted "
+          f"from the code)")
+    check(tuple(toks.shape) == (BATCH, NEW_TOKENS) and
+          toks.device.type == "cuda" and
+          bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          f"merged tree's tokens {tuple(toks.shape)} on {toks.device}, or "
+          f"outside the vocab")
+    n_adapt = count_params(state["lora"])
+    n_base = count_params(base)
+    print(f"LoRA (rank {LORA_RANK}, q/v, alpha {LORA_ALPHA}, AdamW at "
+          f"{LORA_LR}) over the flagship ({layers} layers, batch 8, seq "
+          f"{cfg.max_seq - 1}): {n_adapt} adapter values against the base's "
+          f"{n_base} ({n_adapt / n_base!r}); (b) losses {losses}; (e) tp "
+          f"{TP_RANKS} losses {tp_losses}; launches per step of kernels 1-3 "
+          f"{one_k[:3]}, kernel 6 under tp {tp_k[5]}; (f) {BATCH}x"
+          f"{PROMPT_LEN} prompt + {NEW_TOKENS} tokens from the merged tree, "
+          f"kernel 4 launched {main_counts['flash_decode_attention']} times  "
+          f"[{card}]")
+    print(f"LoRA phase launches (main path: (b), (e), (f)): {main_counts}")
+
+    # ---- (b) the freeze ---------------------------------------------------
+    check(losses[-1] < losses[0], f"(b) LoRA loss did not fall: {losses}")
+    check(all(x.grad is None and bits_equal(x, b)
+              for x, b in zip(tree_leaves(base), base_bits)),
+          "(b) a base leaf changed or holds a .grad")
+    adapters = tree_leaves(state["lora"]["blocks"])
+    opt = state["opt"]
+    moments = opt_bytes(opt) // 4  # float32 moments, as the adapters
+    check({id(p) for p in opt.state} == {id(x) for x in adapters} and
+          moments == 2 * n_adapt,
+          f"(b) the optimizer holds {len(opt.state)} tensors' state and "
+          f"{moments} float32 moment values; want the {len(adapters)} "
+          f"adapters' {2 * n_adapt}")
+    print(f"(b) base: every bit kept, no .grad; AdamW moments {moments} "
+          f"values, the adapters' alone")
+
+    # ---- (c) the merge equals the next step --------------------------------
+    with torch.no_grad():
+        merged_loss = float(loss_fn(merged, tokens, cfg))
+    _, next_loss = step(state, tokens)
+    next_loss = float(next_loss)
+    gap = abs(merged_loss - next_loss) / abs(next_loss)
+    print(f"(c) merged tree's loss {merged_loss!r}, the next step's "
+          f"{next_loss!r}: relative gap {gap!r} (rtol {LORA_MERGE_RTOL})")
+    check(gap <= LORA_MERGE_RTOL, f"(c) merge gap {gap}")
+
+    # ---- (a) identity ------------------------------------------------------
+    fresh = lora_init(base, LORA_RANK,
+                      generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        same = bits_equal(forward(base, tokens[:, :-1], cfg),
+                          forward(merge_lora(base, fresh, LORA_ALPHA),
+                                  tokens[:, :-1], cfg))
+    check(same, "(a) fresh adapters: the merged forward differs from the "
+                "base's")
+    print("(a) fresh adapters: the merged tree's forward is the base's, bit "
+          "for bit (kernel 1)")
+
+    # ---- (d) flash against dense, and the faulty control -------------------
+    _, _, dense = run("(d) dense", flagship_train_config(
+        attention_impl="dense"), None, LORA_DENSE_STEPS, [0] * len(names))
+    sound_delta = lmod.lora_delta
+
+    def rank_over_alpha(w, ab, alpha, rank):
+        return sound_delta(w, ab, rank * rank / alpha, rank)
+
+    lmod.lora_delta = rank_over_alpha
+    try:
+        _, _, ctrl = run("(d) control", cfg, None, LORA_DENSE_STEPS,
+                         one_k)
+    finally:
+        lmod.lora_delta = sound_delta
+    gaps, cgaps = loss_gaps(losses[:LORA_DENSE_STEPS], dense), \
+        loss_gaps(ctrl, dense)
+    tp_gaps = loss_gaps(tp_losses, losses[:LORA_TP_STEPS])
+    print(f"(d) dense losses {dense}; flash against dense: relative gaps "
+          f"{gaps} (rtol {LORA_LOSS_RTOL}); control (delta scaled by rank / "
+          f"alpha) losses {ctrl}, gaps {cgaps} (step 0 equal by "
+          f"construction: B = 0)")
+    print(f"(e) tp {TP_RANKS} against one device: relative gaps {tp_gaps} "
+          f"(rtol {TP_LOSS_RTOL})")
+    check(max(gaps) <= LORA_LOSS_RTOL,
+          f"(d) flash against dense: gaps {gaps} over {LORA_LOSS_RTOL}")
+    check(min(cgaps[1:]) > LORA_LOSS_RTOL,
+          f"(d) the control's gaps {cgaps} fall inside {LORA_LOSS_RTOL}")
+    check(max(tp_gaps) <= TP_LOSS_RTOL,
+          f"(e) tp against one device: gaps {tp_gaps} over {TP_LOSS_RTOL}")
+
+    # ---- (d) the float32 witness: ten steps, and the adapter gradients -----
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on: the float32 witness needs full float32 products")
+    cfg32 = flagship_train_config(dtype=torch.float32)
+    cfg32_dense = flagship_train_config(dtype=torch.float32,
+                                        attention_impl="dense")
+    state32, _, f32 = run("(d) float32", cfg32, None, LORA_STEPS, one_k)
+    _, _, d32 = run("(d) float32 dense", cfg32_dense, None, LORA_STEPS,
+                    [0] * len(names))
+    lmod.lora_delta = rank_over_alpha
+    try:
+        _, _, c32 = run("(d) float32 control", cfg32, None, LORA_STEPS,
+                        one_k)
+    finally:
+        lmod.lora_delta = sound_delta
+    gaps32, cgaps32 = loss_gaps(f32, d32), loss_gaps(c32, d32)
+
+    def adapter_grads(c, delta):
+        """The adapter gradients of ``c``'s loss at ``state32``'s
+        adapters (ten steps in: every B is non-zero), the deltas made by
+        ``delta``."""
+        leaves = tree_leaves(state32["lora"]["blocks"])
+        lmod.lora_delta = delta
+        try:
+            loss = loss_fn(merge_lora(base, state32["lora"], LORA_ALPHA),
+                           tokens, c)
+        finally:
+            lmod.lora_delta = sound_delta
+        return torch.autograd.grad(loss, leaves)
+
+    def grad_gap(got, ref):
+        """The worst leaf's max |got - ref| over its largest |ref|."""
+        return max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   .item() for a, b in zip(got, ref))
+
+    g_dense = adapter_grads(cfg32_dense, sound_delta)
+    g_flash = adapter_grads(cfg32, sound_delta)
+    g_ctrl = adapter_grads(cfg32, rank_over_alpha)
+    ggap, cggap = grad_gap(g_flash, g_dense), grad_gap(g_ctrl, g_dense)
+    del g_dense, g_flash, g_ctrl
+    print(f"(d) float32 witness, TF32 off, {LORA_STEPS} steps at "
+          f"{LORA_LR}: flash losses {f32}, dense {d32}, relative gaps "
+          f"{gaps32} (rtol {TRAIN_LOSS_RTOL}); control gaps {cgaps32}; "
+          f"adapter gradients at step {LORA_STEPS}, flash against dense: "
+          f"worst leaf max|diff|/max|grad| {ggap!r}, control's {cggap!r} "
+          f"(limit {TRAIN_GRAD_REL})  [{card}]")
+    check(max(gaps32) <= TRAIN_LOSS_RTOL,
+          f"(d) float32 flash against dense: gaps {gaps32} over "
+          f"{TRAIN_LOSS_RTOL}")
+    check(min(cgaps32[1:]) > TRAIN_LOSS_RTOL,
+          f"(d) float32 control's gaps {cgaps32} fall inside "
+          f"{TRAIN_LOSS_RTOL}")
+    check(ggap <= TRAIN_GRAD_REL,
+          f"(d) float32 adapter gradients: flash against dense {ggap} over "
+          f"{TRAIN_GRAD_REL}")
+    check(cggap > TRAIN_GRAD_REL,
+          f"(d) float32 control's adapter gradients {cggap} fall inside "
+          f"{TRAIN_GRAD_REL}")
+    del state32
+    torch.cuda.empty_cache()
+
+    # ---- (f) kernel 4 against dense decode, float32; int8 ------------------
+    cfg_f = flagship_config(dtype=torch.float32,
+                            max_seq=PROMPT_LEN + NEW_TOKENS)
+    cfg_d = flagship_config(dtype=torch.float32, decode_attention="dense",
+                            max_seq=PROMPT_LEN + NEW_TOKENS)
+    seq = torch.cat([prompt, toks], dim=1)
+    worst = 0.0
+    with torch.no_grad():
+        _, cache_f = prefill(merged, seq[:, :PROMPT_LEN], cfg_f)
+        _, cache_d = prefill(merged, seq[:, :PROMPT_LEN], cfg_d)
+        for n_valid in range(PROMPT_LEN, PROMPT_LEN + NEW_TOKENS - 1):
+            tok = seq[:, n_valid]
+            lf, cache_f = decode_step(merged, tok, cache_f, n_valid, cfg_f)
+            ld, cache_d = decode_step(merged, tok, cache_d, n_valid, cfg_d)
+            check(bool(torch.isfinite(lf).all()) and
+                  torch.allclose(lf, ld, atol=SLICE_LOGITS_ATOL,
+                                 rtol=SLICE_LOGITS_RTOL),
+                  f"(f) merged tree, kernel 4 against dense: logits differ "
+                  f"by {(lf - ld).abs().max().item()} at n_valid={n_valid}")
+            worst = max(worst, (lf - ld).abs().max().item())
+    del cache_f, cache_d
+    qtoks = generate(quantize_params(merged), prompt, scfg, NEW_TOKENS)
+    torch.cuda.synchronize()
+    check(tuple(qtoks.shape) == (BATCH, NEW_TOKENS) and
+          bool(((qtoks >= 0) & (qtoks < cfg.vocab)).all()),
+          "(f) int8 merged tree: tokens outside the vocab or of the wrong "
+          "shape")
+    print(f"(f) merged tree, teacher-forced float32 over "
+          f"{NEW_TOKENS - 1} steps: max |kernel 4 - dense| logit {worst!r} "
+          f"(atol {SLICE_LOGITS_ATOL}, rtol {SLICE_LOGITS_RTOL}); int8 "
+          f"tokens in the vocab, agreement with bf16 greedy "
+          f"{float((qtoks == toks).float().mean())!r}")
+    del merged
+    torch.cuda.empty_cache()
+
+    # ---- (g) times: a LoRA step beside a full step, interleaved ------------
+    init_full, full_step = make_train_step(cfg)
+    full = init_full.from_params(clone_tree(base))
+    full_step(full, tokens)  # warm-up: AdamW's moments exist from here
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = {"LoRA": [], "full": []}
+    for _ in range(LORA_REPEATS):
+        for label, fn, st in (("LoRA", step, state),
+                              ("full", full_step, full)):
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(LORA_TIMED_STEPS):
+                fn(st, tokens)
+            end.record()
+            torch.cuda.synchronize()
+            times[label].append(start.elapsed_time(end) / LORA_TIMED_STEPS)
+    lora_bytes, full_bytes = opt_bytes(opt), opt_bytes(full["opt"])
+    print(f"(g) ms per step (CUDA events, {LORA_TIMED_STEPS} steps a "
+          f"repeat, {LORA_REPEATS} interleaved repeats after a warm-up): "
+          f"LoRA {times['LoRA']}, full {times['full']}; phase 5's full step "
+          f"{full_ms!r}; optimizer state bytes: LoRA {lora_bytes}, full "
+          f"{full_bytes}; kernels 1-3 launches a step {one_k[:3]} in both  "
+          f"[{card}]")
+    del full
+    torch.cuda.empty_cache()
+    profile_steps(lambda: step(state, tokens), 2, "LoRA step",
+                  min(times["LoRA"]), card)
+    return main_counts
+
+
 def decode_times(dev, gen, card, cfg):
     """Kernel 4 at the flagship decode shape (n_valid 0, 128 and 255) and
     at a long cache of the same widths (t 8192, n_valid 8191): kernel,
@@ -3707,7 +4088,11 @@ def main() -> int:
     spec_counts = spec_slice(dev, card)
     torch.cuda.empty_cache()
 
-    # ---- 15. result -----------------------------------------------------
+    # ---- 15. LoRA: adapter-only steps, the merged tree served ----------
+    lora_counts = lora_slice(dev, card, step_ms)
+    torch.cuda.empty_cache()
+
+    # ---- 16. result -----------------------------------------------------
     source = "mpi_tpu_torch/ops/csrc/flash_attention.cu"
     kernels = []
     for name, replaces, n in zip(
@@ -3752,7 +4137,8 @@ def main() -> int:
                 "pipeline_launches": pp_counts.get(row["name"], 0),
                 "halo_launches": halo_counts.get(row["name"], 0),
                 "moe_launches": moe_counts.get(row["name"], 0),
-                "speculative_launches": spec_counts[row["name"]]}
+                "speculative_launches": spec_counts[row["name"]],
+                "lora_launches": lora_counts[row["name"]]}
                for row in kernels]
     print(card)
     print(json.dumps({"kernels": kernels}))

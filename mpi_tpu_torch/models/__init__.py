@@ -6,11 +6,13 @@ axis, with ZeRO-1 or FSDP as options, the model split over the ``tp``
 axis), the same blocks as a GPipe pipeline over a ``pp`` axis
 (:mod:`.pipeline_lm`), the Mixture-of-Experts FFN with its experts over
 an ``ep`` axis (:mod:`.moe`), KV-cache generation with prompt-lookup
-speculative decoding (:mod:`.speculative`), int8 weights, and loading the
-JAX package's tree."""
+speculative decoding (:mod:`.speculative`), LoRA fine-tuning
+(:mod:`.lora`), int8 weights, and loading the JAX package's tree."""
 
 from .convert import params_from_jax
 from .generate import decode_step, generate, prefill
+from .lora import (count_params, lora_delta, lora_from_jax, lora_init,
+                   make_lora_train_parts, make_lora_train_step, merge_lora)
 from .moe import init_moe_params, moe_ffn, moe_specs
 from .pipeline_lm import (forward_pipelined, init_pipelined_params,
                           make_pipelined_train_step, pipeline_loss_fn,
@@ -31,4 +33,6 @@ __all__ = ["TransformerConfig", "init_params", "forward", "forward_with_aux",
            "params_from_jax", "stack_block_params", "init_pipelined_params",
            "forward_pipelined", "pipeline_loss_fn",
            "make_pipelined_train_step", "init_moe_params", "moe_ffn",
-           "moe_specs"]
+           "moe_specs", "lora_init", "lora_delta", "merge_lora",
+           "make_lora_train_parts", "make_lora_train_step", "count_params",
+           "lora_from_jax"]

@@ -23,7 +23,16 @@ reductions). ``--dp``, ``--sp`` and ``--tp`` make one ``("dp", "sp",
 the default, means no mesh). ``--optimizer`` takes adamw, adafactor or
 sgd (momentum 0.9), and ``--warmup-steps W`` warms the rate up over W
 steps into cosine decay over the run (``total_steps = --steps``), as
-``examples/train.py`` does. The long-context
+``examples/train.py`` does. ``--lora RANK`` freezes a base drawn from
+``--seed`` and trains rank-RANK q/v adapters at lr 1e-2 in its place
+(``models/lora.py``; kernels 1-3 as the full step, on the same mesh); it
+refuses ``--grad-accum`` above 1, ``--warmup-steps``, ``--zero1`` and
+``--fsdp``, as ``examples/train.py`` does. Its MFU is None:
+:func:`train_flops_per_step` counts a full fine-tune's weight gradients.
+``--sample N`` then greedily generates N tokens after an 8-token prompt
+(:func:`sample_prompt`, ``examples/train.py``'s) through ``generate`` on
+the flash-decode kernel, from the merged tree under ``--lora`` and the
+trained one otherwise. The long-context
 configuration (``bench.py``'s ``measure_long_context``: 4 layers, seq
 8192, batch 1, remat) with zigzag ring attention over 8 ranks is::
 
@@ -36,12 +45,14 @@ Run::
     python -m mpi_tpu_torch.train --dp 8 --zero1  # 8 dp ranks, ZeRO-1
     python -m mpi_tpu_torch.train --tp 8          # 8 tp ranks
     python -m mpi_tpu_torch.train --optimizer adafactor --warmup-steps 2
+    python -m mpi_tpu_torch.train --lora 8 --sample 16  # LoRA, then sample
     python -m mpi_tpu_torch.train --layers 2 --seq 64 --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 from typing import Optional
@@ -49,12 +60,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .models import TransformerConfig, make_train_step
+from .models import (TransformerConfig, full_params, generate, init_params,
+                     make_lora_train_step, make_train_step, merge_lora)
 from .parallel import RankMesh
 from .utils.platform import resolve_device
 
 __all__ = ["ATTENTION_IMPLS", "flagship_train_config",
-           "train_flops_per_step", "peak_bf16_tflops", "main"]
+           "train_flops_per_step", "peak_bf16_tflops", "sample_prompt",
+           "main"]
 
 # examples/train.py's --attention choices.
 ATTENTION_IMPLS = ("dense", "flash", "blockwise", "ring", "ring_flash",
@@ -63,6 +76,21 @@ ATTENTION_IMPLS = ("dense", "flash", "blockwise", "ring", "ring_flash",
 # Dense bf16 peaks (NVIDIA's data sheets, no sparsity), keyed by
 # torch.cuda.get_device_name.
 _PEAK_BF16_TFLOPS = (("H100 80GB HBM3", 989.0), ("H100 PCIe", 756.0))
+
+# --sample's prompt: examples/train.py's, the step-0 batch of
+# SyntheticLM(vocab, 1, PROMPT_LEN, seed=PROMPT_SEED).
+PROMPT_LEN = 8
+PROMPT_SEED = 99
+
+
+def sample_prompt(vocab: int) -> torch.Tensor:
+    """``--sample``'s (1, PROMPT_LEN) prompt, drawn as the JAX package's
+    ``SyntheticLM`` draws its step 0: int32 from a numpy generator seeded
+    with ``(PROMPT_SEED, 0)``, so both trainers prompt with the same
+    tokens."""
+    rng = np.random.default_rng(np.random.SeedSequence([PROMPT_SEED, 0]))
+    return torch.from_numpy(rng.integers(0, vocab, (1, PROMPT_LEN),
+                                         dtype=np.int32)).long()
 
 
 def flagship_train_config(n_layers: int = 8, seq: int = 1024,
@@ -129,6 +157,11 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--warmup-steps", type=int, default=0,
                     help="linear LR warmup; with --steps it becomes "
                          "warmup + cosine decay")
+    ap.add_argument("--lora", type=int, default=0, metavar="RANK",
+                    help="freeze the base model and train rank-RANK "
+                         "LoRA adapters instead (adapter-only state)")
+    ap.add_argument("--sample", type=int, default=0, metavar="N",
+                    help="after training, greedily generate N tokens")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
@@ -137,6 +170,19 @@ def main(argv: Optional[list] = None) -> int:
         ap.error("--steps must be at least 2: one warm-up, one timed")
     if min(args.sp, args.dp, args.tp) < 1:
         ap.error("--sp, --dp and --tp must be at least 1")
+    if args.lora:
+        unsupported = [n for n, v in (("--grad-accum", args.grad_accum > 1),
+                                      ("--warmup-steps", args.warmup_steps),
+                                      ("--zero1", args.zero1),
+                                      ("--fsdp", args.fsdp)) if v]
+        if unsupported:
+            raise SystemExit(
+                f"--lora does not support {', '.join(unsupported)} in "
+                f"this demo (adapter state has its own shape)")
+    if PROMPT_LEN + args.sample > args.seq + 1:
+        ap.error(f"--sample {args.sample}: the {PROMPT_LEN}-token prompt "
+                 f"and {args.sample} new tokens exceed max_seq "
+                 f"{args.seq + 1} (--seq + 1)")
 
     dev = resolve_device(args.device)
     cfg = flagship_train_config(args.layers, args.seq,
@@ -147,12 +193,20 @@ def main(argv: Optional[list] = None) -> int:
     if args.dp * args.sp * args.tp > 1 or args.zero1 or args.fsdp:
         mesh = RankMesh([dev] * (args.dp * args.sp * args.tp),
                         ("dp", "sp", "tp"), sizes)
-    init_state, step = make_train_step(
-        cfg, mesh=mesh, grad_accum=args.grad_accum,
-        optimizer=args.optimizer, warmup_steps=args.warmup_steps,
-        total_steps=args.steps if args.warmup_steps else None,
-        zero1=args.zero1, fsdp=args.fsdp)
-    state = init_state(torch.Generator().manual_seed(args.seed), dev)
+    gen = torch.Generator().manual_seed(args.seed)
+    if args.lora:
+        base = init_params(cfg, gen, dev)
+        init_state, step = make_lora_train_step(
+            cfg, base, rank=args.lora, mesh=mesh, learning_rate=1e-2,
+            optimizer=args.optimizer)
+        state = init_state(gen)
+    else:
+        init_state, step = make_train_step(
+            cfg, mesh=mesh, grad_accum=args.grad_accum,
+            optimizer=args.optimizer, warmup_steps=args.warmup_steps,
+            total_steps=args.steps if args.warmup_steps else None,
+            zero1=args.zero1, fsdp=args.fsdp)
+        state = init_state(gen, dev)
     tokens = torch.from_numpy(np.random.default_rng(args.seed).integers(
         0, cfg.vocab, (args.batch, args.seq + 1))).to(dev)
     cuda = dev.type == "cuda"
@@ -161,7 +215,8 @@ def main(argv: Optional[list] = None) -> int:
           f"layers={args.layers} attention={args.attention} dp={args.dp} "
           f"sp={args.sp} tp={args.tp} zero1={args.zero1} fsdp={args.fsdp} "
           f"optimizer={args.optimizer} warmup_steps={args.warmup_steps} "
-          f"remat={args.remat} grad_accum={args.grad_accum}")
+          f"remat={args.remat} grad_accum={args.grad_accum} "
+          f"lora={args.lora} sample={args.sample}")
 
     _, loss = step(state, tokens)  # warm-up
     print(f"step 0 loss {float(loss):.6f} (warm-up)")
@@ -184,16 +239,30 @@ def main(argv: Optional[list] = None) -> int:
     finite = all(bool(torch.isfinite(x)) for x in losses)
 
     tok_s = args.batch * args.seq / ms * 1e3
+    what = f"LoRA rank {args.lora}, " if args.lora else ""
     if not cuda:
-        print(f"{ms:.3f} ms/step (host clock, CPU), {tok_s:.0f} tokens/s")
-        return 0 if finite else 1
-    tflops = train_flops_per_step(cfg, args.batch, args.seq) / ms / 1e9
-    peak = peak_bf16_tflops(name)
-    mfu = None if peak is None else tflops / peak
-    print(f"{ms:.3f} ms/step (CUDA events), {tok_s:.0f} tokens/s, "
-          f"{tflops:.2f} model TFLOP/s, MFU "
-          f"{mfu if mfu is None else f'{mfu:.4f}'} against {peak} TFLOP/s "
-          f"dense bf16 ({name})")
+        print(f"{ms:.3f} ms/step ({what}host clock, CPU), {tok_s:.0f} "
+              f"tokens/s")
+    elif args.lora:
+        print(f"{ms:.3f} ms/step ({what}CUDA events), {tok_s:.0f} tokens/s, "
+              f"MFU None (train_flops_per_step counts a full fine-tune's "
+              f"weight gradients) ({name})")
+    else:
+        tflops = train_flops_per_step(cfg, args.batch, args.seq) / ms / 1e9
+        peak = peak_bf16_tflops(name)
+        mfu = None if peak is None else tflops / peak
+        print(f"{ms:.3f} ms/step (CUDA events), {tok_s:.0f} tokens/s, "
+              f"{tflops:.2f} model TFLOP/s, MFU "
+              f"{mfu if mfu is None else f'{mfu:.4f}'} against {peak} "
+              f"TFLOP/s dense bf16 ({name})")
+    if args.sample:
+        with torch.no_grad():
+            params = (merge_lora(base, state["lora"]) if args.lora
+                      else full_params(state))
+        toks = generate(params, sample_prompt(cfg.vocab).to(dev),
+                        dataclasses.replace(cfg, decode_attention="flash"),
+                        args.sample, device=dev)
+        print("sampled:", toks[0].tolist())
     return 0 if finite else 1
 
 
