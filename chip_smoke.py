@@ -82,6 +82,16 @@ port's paths and checks what comes out:
   the merged tree's loss is the next step's, fresh adapters leave the
   forward bitwise the base's, flash against dense attention with a faulty
   control that must miss, and ms per step beside the full step's;
+* the Vision Transformer: ViT-B/16 (196 patches, 12 heads of 64, 12
+  layers, 1000 classes) through ``forward_vit`` on a batch of 64 images
+  and ten AdamW steps through ``make_vit_train_step`` (the flash kernels'
+  non-causal grid), and three steps over a (dp 2, sp 2, tp 2) rank mesh
+  on the card (the all-reduce kernel for the tp reductions): the kernels
+  at its shape timed (phase 1 holds them against their plain versions
+  there), the bf16 logits against float32 dense, float32 logits flash
+  against dense and the position symmetry, each with a causal control
+  that must miss, a remat step, a float32 step flash against dense, the mesh
+  against one device with a faulty control, ms per batch and per step;
 
 then times the paths and the kernels, and prints:
 
@@ -92,9 +102,9 @@ then times the paths and the kernels, and prints:
   data-parallel phase, ``tp_launches``, on the tensor-parallel phase,
   ``pipeline_launches``, on the pipeline phase, ``halo_launches``, on
   the halo phase, ``moe_launches``, on the Mixture-of-Experts phase, and
-  ``speculative_launches``, on the speculative phase, and
-  ``lora_launches``, on the LoRA phase, checked against the count worked
-  out from the code),
+  ``speculative_launches``, on the speculative phase,
+  ``lora_launches``, on the LoRA phase, and ``vit_launches``, on the
+  ViT phase, checked against the count worked out from the code),
   its largest error against the plain version, and
   its time beside its bound, the plain version's time and one PyTorch
   library call's time;
@@ -377,6 +387,45 @@ LORA_MERGE_RTOL = 1e-5
 LORA_DENSE_STEPS = 3
 LORA_LOSS_RTOL = 4e-4
 
+# The Vision Transformer (phase 16): ViT-B/16 as Dosovitskiy et al. 2020
+# publish it (Table 1, "ViT-Base"): 224 x 224 x 3 images in patches of 16
+# (196 patches), d_model 768, 12 heads of 64, 12 layers, d_ff 3072, 1000
+# classes, nothing cut; the repo's ViT mean-pools the patches (no class
+# token). bf16 over float32 masters, flash attention, AdamW at VIT_LR
+# (make_vit_train_step's default), one seeded batch of VIT_BATCH images.
+VIT = dict(image_size=224, patch_size=16, channels=3, n_classes=1000,
+           d_model=768, n_heads=12, n_layers=12, d_ff=3072)
+VIT_BATCH = 64
+VIT_LR = 1e-3
+VIT_STEPS = 10
+VIT_MESH_STEPS = 3
+VIT_TIMED = 5
+VIT_REPEATS = 3
+# Float32 logits (TF32 off), flash against dense attention: both float32
+# end to end, they differ by summation order over 12 layers; the causal
+# control differs in what it computes. The position symmetry (zeroed
+# position table, patch rows permuted): tests/test_vit.py's tolerance, the
+# permutation moving only the summation order of attention and the pool.
+VIT_LOGITS_TOL = (1e-4, 1e-4)
+VIT_SYMMETRY_TOL = (1e-5, 1e-4)
+# The main path's bf16 flash logits against float32 dense: bf16 rounds
+# every activation (8 bits of mantissa) through 12 layers. Measured
+# (NVIDIA H100 80GB HBM3, 700.00 W): max |diff| 0.0201 on logits of
+# |max| 2.77; the float32 causal control 1.96. The limit sits 5 times
+# over the sound gap and 20 times under the control's.
+VIT_BF16_LOGITS_ATOL = 0.1
+# The (dp 2, sp 2, tp 2) mesh's three steps against one device's: bf16
+# activations rounded at other points (the tp partials summed in float32,
+# then rounded once) part the two, and AdamW grows the parting. Measured
+# (NVIDIA H100 80GB HBM3, 700.00 W): relative loss gaps 3.3e-5, 6.0e-5,
+# 1.09e-4 over steps 0-2, parameter gap 0.058; the faulty control (rank
+# 0's partials for each sum) 1.57e-2, 2.19e-3, 3.05e-2 and 1.23. Each limit
+# sits between the two, 3.7 and 5.2 times over the sound gaps and 5.5 and
+# 4.1 times under the control's least (phase 10's TP_LOSS_RTOL, 1e-3,
+# would sit 2.2 times under it).
+VIT_MESH_LOSS_RTOL = 4e-4
+VIT_MESH_PARAM_REL = 0.3
+
 N_REQUESTS = 3
 BATCH = 8
 PROMPT_LEN = 128
@@ -530,11 +579,43 @@ def flash_work(b, s, t, h, hk, d, elt, causal):
     }
 
 
-def check_flash_kernels(dev, gen):
-    """Kernels 1-3 against their plain versions on the card, kernel 2 both
-    computing delta itself (the flagship's backward) and with delta given
-    (the ring's backward). Returns the largest |kernel - plain| of each
-    kernel over every case."""
+# Phase 1's shapes of kernels 1-3, (b, s, t, h, hk, d, causal).
+FLASH_SHAPES = [
+    (8, 1024, 1024, 8, 8, 128, True),   # flagship
+    (8, 1024, 1024, 8, 2, 128, True),   # GQA, kv 2
+    (8, 1024, 1024, 8, 1, 128, True),   # MQA, kv 1
+    (8, 1024, 1024, 8, 8, 128, False),  # non-causal
+    (4, 1000, 1000, 8, 8, 128, True),   # no multiple of any tile
+    (4, 512, 512, 16, 4, 64, True),     # head_dim 64
+    (4, 512, 768, 8, 2, 128, False),    # s != t: a ring chunk
+    # The long-context chunks (phase 8: seq 8192 over 8 sp ranks, the
+    # ranks of a range folded into the batch): zigzag's past case (s > t),
+    # its future case (s < t) and its causal self blocks.
+    (8, 1024, 512, 8, 8, 128, False),
+    (8, 512, 1024, 8, 8, 128, False),
+    (8, 512, 512, 8, 8, 128, True),
+    # The data-parallel chunks (phase 9): each of 8 dp ranks runs its own
+    # row of the flagship batch; the composition step's zigzag over sp 2
+    # at seq 2048, 2 rows a dp rank (1 or 2 chunks folded into the batch).
+    (1, 1024, 1024, 8, 8, 128, True),
+    (2, 1024, 512, 8, 8, 128, False),
+    (2, 512, 1024, 8, 8, 128, False),
+    (4, 512, 512, 8, 8, 128, False),
+    (4, 512, 512, 8, 8, 128, True),
+    (8193, 64, 64, 8, 8, 64, True),     # b * h = 65544 > grid y's 65535
+]
+# ViT-B/16's attention (phase 16): 196 patches, 12 heads of 64, non-causal,
+# batch 64. The last query tile holds 68 of kernel 1's 128 rows and 4 of
+# the backward's 64.
+VIT_FLASH_SHAPE = (64, 196, 196, 12, 12, 64, False)
+
+
+def check_flash_kernels(dev, gen, shapes=(*FLASH_SHAPES, VIT_FLASH_SHAPE)):
+    """Kernels 1-3 against their plain versions on the card at each of
+    ``shapes``, kernel 2 both computing delta itself (the flagship's
+    backward) and with delta given (the ring's backward). Returns the
+    largest |kernel - plain| of each kernel over every case, and the same
+    for each shape: ({kernel: err}, {shape: {kernel: err}})."""
     import torch
 
     from mpi_tpu_torch.ops.attention import (_delta,
@@ -544,35 +625,12 @@ def check_flash_kernels(dev, gen):
                                              flash_bwd_dq_delta,
                                              flash_chunk_bwd, flash_fwd)
 
-    shapes = [  # (b, s, t, h, hk, d, causal)
-        (8, 1024, 1024, 8, 8, 128, True),   # flagship
-        (8, 1024, 1024, 8, 2, 128, True),   # GQA, kv 2
-        (8, 1024, 1024, 8, 1, 128, True),   # MQA, kv 1
-        (8, 1024, 1024, 8, 8, 128, False),  # non-causal
-        (4, 1000, 1000, 8, 8, 128, True),   # no multiple of any tile
-        (4, 512, 512, 16, 4, 64, True),     # head_dim 64
-        (4, 512, 768, 8, 2, 128, False),    # s != t: a ring chunk
-        # The long-context chunks (phase 8: seq 8192 over 8 sp ranks, the
-        # ranks of a range folded into the batch): zigzag's past case
-        # (s > t), its future case (s < t) and its causal self blocks.
-        (8, 1024, 512, 8, 8, 128, False),
-        (8, 512, 1024, 8, 8, 128, False),
-        (8, 512, 512, 8, 8, 128, True),
-        # The data-parallel chunks (phase 9): each of 8 dp ranks runs its
-        # own row of the flagship batch; the composition step's zigzag
-        # over sp 2 at seq 2048, 2 rows a dp rank (1 or 2 chunks folded
-        # into the batch).
-        (1, 1024, 1024, 8, 8, 128, True),
-        (2, 1024, 512, 8, 8, 128, False),
-        (2, 512, 1024, 8, 8, 128, False),
-        (4, 512, 512, 8, 8, 128, False),
-        (4, 512, 512, 8, 8, 128, True),
-        (8193, 64, 64, 8, 8, 64, True),     # b * h = 65544 > grid y's 65535
-    ]
     worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    by_shape = {shape: dict.fromkeys(worst, 0.0) for shape in shapes}
     worst_delta = 0.0
     n_cmp = 0
-    for b, s, t, h, hk, d, causal in shapes:
+    for shape in shapes:
+        b, s, t, h, hk, d, causal = shape
         for dtype in (torch.float32, torch.bfloat16):
             tol = FLASH_TOL[str(dtype)]
             q, g = (torch.randn(b, s, h, d, generator=gen,
@@ -619,6 +677,8 @@ def check_flash_kernels(dev, gen):
                       f"{where}")
                 if kernel:
                     worst[kernel] = max(worst[kernel], err)
+                    by_shape[shape][kernel] = max(by_shape[shape][kernel],
+                                                  err)
             n_cmp += 1
             del q, g, k, v, out, lse, ref, ref_lse, got, want, dq2, dq3
             del delta
@@ -627,7 +687,7 @@ def check_flash_kernels(dev, gen):
           f"calls) pass; max |err| "
           f"{worst}, delta {worst_delta!r} (tolerances {FLASH_TOL}, delta "
           f"{DELTA_TOL})")
-    return worst
+    return worst, by_shape
 
 
 def train_slice(dev):
@@ -843,71 +903,49 @@ def flash_vs_dense(dev):
           f"{worst!r} (limit {TRAIN_GRAD_REL})")
 
 
-def flash_times(dev, gen, card):
-    """Each flash kernel at the flagship training shape: kernel, plain
-    version and SDPA times (ms) and the bound; then the whole bf16
-    backward (kernel 2 with delta, then kernel 3) against SDPA's backward
-    at the flagship shape and at one sequence of 8192."""
+def time_flash_kernels(dev, gen, card, b, s, h, d, causal):
+    """Kernels 1-3 at (b, s, h, d), bf16: each kernel's, its plain
+    version's and SDPA's times (ms) beside the bound, then the whole bf16
+    backward (kernel 2 with delta, then kernel 3) against SDPA's backward.
+    Returns ({kernel: row}, the input sets)."""
     import torch
-    import torch.nn.functional as F
 
     from mpi_tpu_torch.ops.attention import (_bwd_plain, _delta,
                                              flash_attention_fwd_plain,
-                                             flash_bwd_dkv, flash_bwd_dq,
-                                             flash_bwd_dq_delta,
-                                             flash_chunk_bwd, flash_fwd)
+                                             flash_bwd_dkv, flash_bwd_dq_delta,
+                                             flash_fwd)
 
-    b, s, h, d, dtype = 8, 1024, 8, 128, torch.bfloat16
-    # Two sets of inputs (2 x 103 MB, over the 50 MB L2) alternate, so each
-    # launch reads its inputs from device memory, as a training step does.
+    dtype = torch.bfloat16
+    # Two sets of inputs (each past the 50 MB L2 at the shapes timed here)
+    # alternate, so each launch reads its inputs from device memory, as a
+    # training step does.
     sets = []
     for _ in range(2):
         q, k, v, g = (torch.randn(b, s, h, d, generator=gen,
                                   device=dev).to(dtype) for _ in range(4))
-        out, lse = flash_fwd(q, k, v, True)
+        out, lse = flash_fwd(q, k, v, causal)
         sets.append((q, k, v, g, lse, _delta(out, g), out))
-    work = flash_work(b, s, s, h, h, d, 2, True)
+    work = flash_work(b, s, s, h, h, d, 2, causal)
     # Kernel 2 as the main path calls it, computing delta from out; its
     # plain version is the plain backward and the plain delta.
     fns = {
         "flash_fwd": (lambda q, k, v, g, lse, dl, o:
-                      flash_fwd(q, k, v, True),
+                      flash_fwd(q, k, v, causal),
                       lambda q, k, v, g, lse, dl, o:
-                      flash_attention_fwd_plain(q, k, v, True)),
+                      flash_attention_fwd_plain(q, k, v, causal)),
         "flash_bwd_dq": (lambda q, k, v, g, lse, dl, o:
-                         flash_bwd_dq_delta(q, k, v, g, lse, o, True),
+                         flash_bwd_dq_delta(q, k, v, g, lse, o, causal),
                          lambda q, k, v, g, lse, dl, o:
-                         _bwd_plain(q, k, v, g, lse, _delta(o, g), True)),
+                         _bwd_plain(q, k, v, g, lse, _delta(o, g), causal)),
         "flash_bwd_dkv": (lambda q, k, v, g, lse, dl, o:
-                          flash_bwd_dkv(q, k, v, g, lse, dl, True),
+                          flash_bwd_dkv(q, k, v, g, lse, dl, causal),
                           lambda q, k, v, g, lse, dl, o:
-                          _bwd_plain(q, k, v, g, lse, dl, True)),
+                          _bwd_plain(q, k, v, g, lse, dl, causal)),
     }
 
-    # SDPA, the yardstick: forward, and its backward alone (one autograd
-    # call that computes dq, dk and dv together).
-    def sdpa(q, k, v):
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True)
-
-    def sdpa_bwd_ms(sets, reps):
-        graphs = []
-        for q, k, v, g, *_ in sets:
-            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-            graphs.append((sdpa(*leaves), leaves, g.transpose(1, 2)))
-        return kernel_ms(
-            lambda o, leaves, g: torch.autograd.grad(o, leaves, g,
-                                                     retain_graph=True),
-            graphs, reps)
-
-    def backward_ms(sets, reps):
-        return kernel_ms(lambda q, k, v, g, lse, dl, o:
-                         flash_chunk_bwd(q, k, v, o, lse, g, True), sets,
-                         reps)
-
-    sdpa_fwd_ms = kernel_ms(lambda q, k, v, *_: sdpa(q, k, v), sets, 50)
-    sdpa_bwd = sdpa_bwd_ms(sets, 50)
+    sdpa_fwd_ms, sdpa_bwd = sdpa_ms(sets, causal, 50)
+    where = f"b={b} s={s} h={h} d={d} {dtype} " + \
+        ("causal" if causal else "non-causal")
     rows = {}
     for name, (fn, plain) in fns.items():
         ms = kernel_ms(fn, sets, 50)
@@ -917,30 +955,73 @@ def flash_times(dev, gen, card):
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=lib)
         n_bytes, n_ops = work[name]
-        print(f"{name} b={b} s={s} h={h} d={d} {dtype} causal: kernel "
-              f"{ms * 1e3!r} us, plain {plain_ms * 1e3!r} us, sdpa "
+        print(f"{name} {where}: kernel {ms * 1e3!r} us, plain "
+              f"{plain_ms * 1e3!r} us, sdpa "
               f"{'forward' if name == 'flash_fwd' else 'backward (dq, dk, dv)'}"
               f" {lib * 1e3!r} us; bound {bound_ms * 1e3!r} us by "
               f"{bound_by} ({n_ops} operations, {n_bytes} bytes); "
-              f"{n_ops / ms / 1e9!r} TFLOP/s  [{card}]")
+              f"{n_ops / ms / 1e9!r} TFLOP/s, {bound_ms / ms!r} of the "
+              f"bound, {ms / lib!r} of sdpa  [{card}]")
+    report_backward(where, sets, sdpa_bwd, work, causal, card)
+    return rows, sets
 
+
+def sdpa_ms(sets, causal, reps):
+    """SDPA, the yardstick, on ``sets`` of flash inputs: (forward ms, its
+    backward's ms, one autograd call that computes dq, dk and dv
+    together)."""
+    import torch
+    import torch.nn.functional as F
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal)
+
+    graphs = []
+    for q, k, v, g, *_ in sets:
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        graphs.append((sdpa(*leaves), leaves, g.transpose(1, 2)))
+    fwd = kernel_ms(lambda q, k, v, *_: sdpa(q, k, v), sets, reps)
+    bwd = kernel_ms(lambda o, leaves, g: torch.autograd.grad(
+        o, leaves, g, retain_graph=True), graphs, reps)
+    return fwd, bwd
+
+
+def report_backward(where, sets, sdpa_bwd, work, causal, card):
+    """The whole bf16 backward (kernel 2 with delta, then kernel 3) on
+    ``sets`` against SDPA's backward time ``sdpa_bwd``."""
+    import torch
+
+    from mpi_tpu_torch.ops.attention import flash_chunk_bwd
+
+    ms = kernel_ms(lambda q, k, v, g, lse, dl, o:
+                   flash_chunk_bwd(q, k, v, o, lse, g, causal), sets, 50)
+    n_bytes = work["flash_bwd_dq"][0] + work["flash_bwd_dkv"][0]
+    n_ops = work["flash_bwd_dq"][1] + work["flash_bwd_dkv"][1]
+    bound_ms, bound_by = bound(n_bytes, n_ops, torch.bfloat16)
+    print(f"flash backward (kernel 2 with delta, then kernel 3) {where}: "
+          f"{ms * 1e3!r} us, sdpa backward (dq, dk, dv) "
+          f"{sdpa_bwd * 1e3!r} us, ratio {ms / sdpa_bwd!r}; bound "
+          f"{bound_ms * 1e3!r} us by {bound_by}; "
+          f"{n_ops / ms / 1e9!r} TFLOP/s over 7 products  [{card}]")
+
+
+def flash_times(dev, gen, card):
+    """Each flash kernel at the flagship training shape: kernel, plain
+    version and SDPA times (ms) and the bound; then the whole bf16
+    backward (kernel 2 with delta, then kernel 3) against SDPA's backward
+    at the flagship shape and at one sequence of 8192."""
+    import torch
+
+    from mpi_tpu_torch.ops.attention import _delta, flash_bwd_dq, flash_fwd
+
+    h, d, dtype = 8, 128, torch.bfloat16
+    rows, sets = time_flash_kernels(dev, gen, card, 8, 1024, h, d, True)
     given_ms = kernel_ms(lambda q, k, v, g, lse, dl, o:
                          flash_bwd_dq(q, k, v, g, lse, dl, True), sets, 50)
     print(f"flash_bwd_dq with delta given (no out read, no delta write): "
           f"kernel {given_ms * 1e3!r} us  [{card}]")
-
-    def report_backward(label, sets, n_sdpa, work):
-        ms = backward_ms(sets, 50)
-        n_bytes = work["flash_bwd_dq"][0] + work["flash_bwd_dkv"][0]
-        n_ops = work["flash_bwd_dq"][1] + work["flash_bwd_dkv"][1]
-        bound_ms, bound_by = bound(n_bytes, n_ops, dtype)
-        print(f"flash backward (kernel 2 with delta, then kernel 3) "
-              f"{label} {dtype} causal: {ms * 1e3!r} us, sdpa backward "
-              f"(dq, dk, dv) {n_sdpa * 1e3!r} us, ratio {ms / n_sdpa!r}; "
-              f"bound {bound_ms * 1e3!r} us by {bound_by}; "
-              f"{n_ops / ms / 1e9!r} TFLOP/s over 7 products  [{card}]")
-
-    report_backward(f"b={b} s={s} h={h} d={d}", sets, sdpa_bwd, work)
     del sets
 
     # Kernel 1, and the whole backward, at long context, where each block
@@ -952,14 +1033,14 @@ def flash_times(dev, gen, card):
     sets = [(q, k, v, g, lse, _delta(out, g), out)]
     long_ms = kernel_ms(lambda q, k, v, *_: flash_fwd(q, k, v, True), sets,
                         20)
-    long_sdpa = kernel_ms(lambda q, k, v, *_: sdpa(q, k, v), sets, 20)
+    long_sdpa, long_sdpa_bwd = sdpa_ms(sets, True, 20)
     long_work = flash_work(1, 8192, 8192, h, h, d, 2, True)
     n_ops = long_work["flash_fwd"][1]
     print(f"flash_fwd b=1 s=8192 h={h} d={d} {dtype} causal: kernel "
           f"{long_ms * 1e3!r} us, sdpa forward {long_sdpa * 1e3!r} us; "
           f"{n_ops / long_ms / 1e9!r} TFLOP/s  [{card}]")
-    report_backward(f"b=1 s=8192 h={h} d={d}", sets, sdpa_bwd_ms(sets, 20),
-                    long_work)
+    report_backward(f"b=1 s=8192 h={h} d={d} {dtype} causal", sets,
+                    long_sdpa_bwd, long_work, True, card)
     return rows
 
 
@@ -3758,6 +3839,369 @@ def lora_slice(dev, card, full_ms):
     return main_counts
 
 
+def vit_flops_per_step(cfg, batch):
+    """Model FLOPs of one ViT optimizer step, counted from
+    ``models/vit.py`` as ``train.train_flops_per_step`` counts the LM's:
+    the forward's matrix products (the patch projection; per block q, k, v
+    and o, the FFN, and attention's two products over the whole s² of the
+    non-causal encoder; the head) times 3 for forward and backward."""
+    b, n, d, f = batch, cfg.n_patches, cfg.d_model, cfg.d_ff
+    patch = 2 * b * n * cfg.patch_size ** 2 * cfg.channels * d
+    qkvo = 8 * b * n * d * d
+    ffn = 4 * b * n * d * f
+    attn = 4 * b * n * n * d
+    head = 2 * b * d * cfg.n_classes
+    return 3.0 * (patch + cfg.n_layers * (qkvo + ffn + attn) + head)
+
+
+def vit_tp_launches(layers):
+    """Launches of kernel 6 in one ViT step over a tp axis, counted from
+    the code (``models/vit.py``, ``block_body``): per layer the reduces
+    after wo and w2 in the forward and the copies' backward before q/k/v
+    and w1 (the first's input gradient reaches the patch projection); no
+    embedding, logits or loss reduction (the head is replicated)."""
+    return 4 * layers
+
+
+def vit_slice(dev, card, flash_err):
+    """Phase 16: the Vision Transformer (``models/vit.py``) at ViT-B/16
+    (VIT), bf16 over float32 masters, flash attention: kernels 1-3 with
+    causal=False at head_dim 64 and 196 patches, kernel 6 on a tp mesh.
+    Main path, counted alone: (b) one batch of VIT_BATCH images classified
+    through ``forward_vit``; (c) VIT_STEPS AdamW steps on one device
+    through ``make_vit_train_step``; (d) VIT_MESH_STEPS steps over
+    ``make_mesh_nd(8)``, (dp 2, sp 2, tp 2) ranks on the card (the rows in
+    one pass, the tp reductions on kernel 6), every kernel's launches
+    against the count from the code. Then, outside the count: (a) kernels
+    1-3 at (VIT_BATCH, 196, 12, 64) timed beside the bound and SDPA, the
+    inputs' bits kept (phase 1 held them against their plain versions at
+    VIT_FLASH_SHAPE: ``flash_err`` is its largest |kernel - plain| there);
+    (b) the main path's bf16 logits within VIT_BF16_LOGITS_ATOL of float32
+    dense, float32 logits, flash against dense within VIT_LOGITS_TOL, the
+    position symmetry within VIT_SYMMETRY_TOL, the causal control outside
+    all three, and ms per batch, flash and dense interleaved; (c) the loss falls from near
+    ln 1000, a remat step's loss is the plain step's (kernel 1 twice a
+    layer), a float32 step flash against dense within TRAIN_LOSS_RTOL and
+    TRAIN_GRAD_REL, ms per step, images/s, TFLOP/s and MFU, and a profiled
+    step; (d) within VIT_MESH_LOSS_RTOL and VIT_MESH_PARAM_REL of (c)'s
+    first VIT_MESH_STEPS steps, every copy kernel 6 writes bitwise the
+    same, the faulty control (rank 0's partial for the sum) outside both,
+    tp on w1's spec, ms per step interleaved with one device's. Returns
+    {kernel: launches on the main path}."""
+    import dataclasses
+    import importlib
+    import math
+
+    import numpy as np
+    import torch
+
+    from mpi_tpu_torch.models import (ViTConfig, forward_vit,
+                                      init_vit_params, make_mesh_nd,
+                                      make_vit_train_step, vit_loss_fn)
+    from mpi_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
+                                             flash_fwd)
+    from mpi_tpu_torch.ops.decode_attention import flash_decode_attention
+    from mpi_tpu_torch.ops.ring_collectives import (ring_allgather,
+                                                    ring_allreduce)
+    from mpi_tpu_torch.parallel import sendrecv
+    from mpi_tpu_torch.parallel.zero import tree_leaves
+    from mpi_tpu_torch.train import peak_bf16_tflops
+
+    tpm = importlib.import_module("mpi_tpu_torch.parallel.tensor_parallel")
+    wrappers = {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
+                "flash_bwd_dkv": flash_bwd_dkv,
+                "flash_decode_attention": flash_decode_attention,
+                "ring_allgather": ring_allgather,
+                "ring_allreduce": ring_allreduce, "sendrecv": sendrecv}
+    names = list(wrappers)
+
+    def counts():
+        return [wrappers[k].launches for k in names]
+
+    @dataclasses.dataclass(frozen=True)
+    class CausalViT(ViTConfig):
+        """The faulty control: the same model, its encoder stack causal."""
+
+        @property
+        def inner(self):
+            return dataclasses.replace(super().inner, causal=True)
+
+    cfg = ViTConfig(**VIT, dtype=torch.bfloat16, attention_impl="flash")
+    layers = cfg.n_layers
+    rng = np.random.default_rng(16)
+    images = torch.from_numpy(rng.standard_normal(
+        (VIT_BATCH, cfg.image_size, cfg.image_size, cfg.channels)).astype(
+            np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, VIT["n_classes"],
+                                           VIT_BATCH)).to(dev)
+    batch = (images, labels)
+    params0 = init_vit_params(cfg, torch.Generator().manual_seed(0), dev)
+    p0 = [x.clone() for x in tree_leaves(params0)]
+    n_params = sum(x.numel() for x in p0)
+    mesh = make_mesh_nd(8, devices=[dev] * 8)
+    check(tuple(mesh.shape.values()) == (2, 2, 2), f"mesh {mesh.shape}")
+
+    def run(label, c, m, steps, want, p=params0, snapshot=None):
+        """``steps`` AdamW steps from a copy of ``p`` over mesh ``m``:
+        (step, state, losses, the parameters after step ``snapshot``);
+        each step's launches of kernels 1-4, 5, 6, 7 must equal
+        ``want``."""
+        init_state, step = make_vit_train_step(c, mesh=m,
+                                               learning_rate=VIT_LR)
+        state = init_state.from_params(clone_tree(p))
+        losses, kept = [], None
+        for i in range(steps):
+            before = counts()
+            state, loss = step(state, batch)
+            got = [a - b for a, b in zip(counts(), before)]
+            check(got == want,
+                  f"{label} step {i}: kernels {names} launched {got} times, "
+                  f"want {want} (counted from the code)")
+            losses.append(loss)
+            if i == snapshot:
+                kept = [x.detach().clone()
+                        for x in tree_leaves(state["params"])]
+        losses = [float(x) for x in losses]
+        check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+        return step, state, losses, kept
+
+    one_k = [layers, layers, layers, 0, 0, 0, 0]
+    mesh_k = [layers, layers, layers, 0, 0, vit_tp_launches(layers), 0]
+    copies = {"calls": 0, "differ": 0}
+
+    def checked(contribs, ring, op="sum"):
+        """Kernel 6 as the tp operators call it; every rank's copy of the
+        result must hold copy 0's bits."""
+        out = ring_allreduce(contribs, ring, op)
+        bits = out.view({2: torch.int16, 4: torch.int32}[out.element_size()])
+        copies["calls"] += 1
+        copies["differ"] += int(not bool((bits == bits[:1]).all()))
+        return out
+
+    # ---- the main path: (b), (c) and (d), counted alone -------------------
+    for w in wrappers.values():
+        w.launches = 0
+    with torch.no_grad():
+        logits = forward_vit(params0, images, cfg)
+    torch.cuda.synchronize()
+    check(tuple(logits.shape) == (VIT_BATCH, VIT["n_classes"]) and
+          logits.dtype == torch.float32 and logits.device.type == dev.type and
+          bool(torch.isfinite(logits).all()),
+          f"(b) logits {tuple(logits.shape)} {logits.dtype} on "
+          f"{logits.device}, or not finite")
+    step1, state1, losses, at3 = run("(c) one device", cfg, None, VIT_STEPS,
+                                     one_k, snapshot=VIT_MESH_STEPS - 1)
+    tpm.ring_allreduce = checked
+    try:
+        step_m, state_m, mesh_losses, _ = run("(d) mesh", cfg, mesh,
+                                              VIT_MESH_STEPS, mesh_k)
+    finally:
+        tpm.ring_allreduce = ring_allreduce
+    main_counts = dict(zip(names, counts()))
+    flash = layers * (1 + VIT_STEPS + VIT_MESH_STEPS)
+    want_counts = {"flash_fwd": flash,
+                   "flash_bwd_dq": flash - layers,
+                   "flash_bwd_dkv": flash - layers,
+                   "flash_decode_attention": 0, "ring_allgather": 0,
+                   "ring_allreduce": VIT_MESH_STEPS * mesh_k[5],
+                   "sendrecv": 0}
+    check(main_counts == want_counts,
+          f"ViT phase launches {main_counts}, want {want_counts} (counted "
+          f"from the code)")
+    check(copies["calls"] == VIT_MESH_STEPS * mesh_k[5] and
+          copies["differ"] == 0,
+          f"(d): {copies['differ']} of {copies['calls']} kernel-6 results "
+          f"hold copies that differ from copy 0")
+    print(f"ViT ({n_params} parameters; {VIT_BATCH} images, "
+          f"{cfg.n_patches} patches, {VIT}; bf16 over float32, flash): (c) "
+          f"losses {losses}; (d) (dp 2, sp 2, tp 2) losses {mesh_losses}; "
+          f"launches a step of kernels 1-3 {one_k[:3]}, kernel 6 on the "
+          f"mesh {mesh_k[5]}, every copy the same bits  [{card}]")
+    print(f"ViT phase launches (main path: (b), (c), (d)): {main_counts}")
+
+    # ---- (a) kernels 1-3 at the ViT shape ----------------------------------
+    gen = torch.Generator(device=dev).manual_seed(16)
+    b, s, _, h, _, d, causal = VIT_FLASH_SHAPE
+    _, sets = time_flash_kernels(dev, gen, card, b, s, h, d, causal)
+    for q, k, v, g, lse, dl, o in sets:  # the kernels leave inputs alone
+        kept = [x.clone() for x in (q, k, v, g, lse, dl, o)]
+        flash_fwd(q, k, v, causal)
+        flash_bwd_dq(q, k, v, g, lse, dl, causal)
+        flash_bwd_dkv(q, k, v, g, lse, dl, causal)
+        torch.cuda.synchronize()
+        check(all(bits_equal(x, y) for x, y in
+                  zip((q, k, v, g, lse, dl, o), kept)),
+              "(a) a kernel wrote into its inputs at the ViT shape")
+    del sets, kept
+    print(f"(a) kernels 1-3 at b={b} s={s} h={h} d={d}, non-causal, bf16 "
+          f"and float32 against plain (phase 1): max |err| {flash_err}; "
+          f"inputs keep their bits")
+    torch.cuda.empty_cache()
+
+    # ---- (b) float32 logits: flash against dense, the symmetry ------------
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on: the float32 checks need full float32 products")
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    dense32 = dataclasses.replace(cfg32, attention_impl="dense")
+    causal32 = CausalViT(**VIT, attention_impl="flash")
+    causal16 = dataclasses.replace(causal32, dtype=torch.bfloat16)
+    sym = dict(params0, pos=torch.zeros_like(params0["pos"]))
+    half = VIT["image_size"] // 2
+    swapped = torch.cat([images[:, half:], images[:, :half]], dim=1)
+    with torch.no_grad():
+        want = forward_vit(params0, images, dense32)
+        got = forward_vit(params0, images, cfg32)
+        ctrl = forward_vit(params0, images, causal32)
+        ctrl16 = forward_vit(params0, images, causal16)
+        sym_a = forward_vit(sym, images, cfg32)
+        sym_b = forward_vit(sym, swapped, cfg32)
+        csym_a = forward_vit(sym, images, causal32)
+        csym_b = forward_vit(sym, swapped, causal32)
+    atol, rtol = VIT_LOGITS_TOL
+    satol, srtol = VIT_SYMMETRY_TOL
+    gap = max_abs_diff(got, want)
+    cgap = max_abs_diff(ctrl, want)
+    bf16_gap = max_abs_diff(logits, want)
+    cbf16_gap = max_abs_diff(ctrl16, want)
+    sgap, csgap = max_abs_diff(sym_a, sym_b), max_abs_diff(csym_a, csym_b)
+    print(f"(b) float32 logits (|max| {want.abs().max().item()!r}), flash "
+          f"against dense: max |diff| {gap!r} (atol {atol}, rtol {rtol}); "
+          f"causal control {cgap!r}; bf16 flash (the main path's logits) "
+          f"against float32 dense {bf16_gap!r} (atol {VIT_BF16_LOGITS_ATOL}),"
+          f" causal control {cbf16_gap!r}. Zeroed position table, top and bottom halves "
+          f"swapped: max |diff| {sgap!r} (atol {satol}, rtol {srtol}), causal "
+          f"control {csgap!r}")
+    check(torch.allclose(got, want, atol=atol, rtol=rtol),
+          f"(b) float32 flash logits against dense: {gap}")
+    check(not torch.allclose(ctrl, want, atol=atol, rtol=rtol),
+          f"(b) the causal control's logits fall inside the tolerance "
+          f"({cgap})")
+    check(bf16_gap <= VIT_BF16_LOGITS_ATOL,
+          f"(b) bf16 flash logits against float32 dense: {bf16_gap}")
+    check(cbf16_gap > VIT_BF16_LOGITS_ATOL,
+          f"(b) the bf16 causal control's logits fall inside the limit "
+          f"({cbf16_gap})")
+    check(torch.allclose(sym_a, sym_b, atol=satol, rtol=srtol),
+          f"(b) position symmetry: {sgap}")
+    check(not torch.allclose(csym_a, csym_b, atol=satol, rtol=srtol),
+          f"(b) the causal control keeps the position symmetry ({csgap})")
+    del want, got, ctrl, ctrl16, sym_a, sym_b, csym_a, csym_b, swapped, sym
+
+    # ms per batch, flash and dense (bf16) interleaved.
+    dense = dataclasses.replace(cfg, attention_impl="dense")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fwd_ms = {"flash": [], "dense": []}
+    with torch.no_grad():
+        forward_vit(params0, images, dense)  # warm-up
+        for _ in range(VIT_REPEATS):
+            for label, c in (("flash", cfg), ("dense", dense)):
+                torch.cuda.synchronize()
+                start.record()
+                for _ in range(VIT_TIMED):
+                    forward_vit(params0, images, c)
+                end.record()
+                torch.cuda.synchronize()
+                fwd_ms[label].append(start.elapsed_time(end) / VIT_TIMED)
+    print(f"(b) classify, ms per batch of {VIT_BATCH} (CUDA events, "
+          f"{VIT_TIMED} forwards a repeat, {VIT_REPEATS} interleaved "
+          f"repeats): flash {fwd_ms['flash']}, dense {fwd_ms['dense']}; "
+          f"images/s {VIT_BATCH / max(fwd_ms['flash']) * 1e3!r}-"
+          f"{VIT_BATCH / min(fwd_ms['flash']) * 1e3!r} (flash)  [{card}]")
+    torch.cuda.empty_cache()
+
+    # ---- (c) training on one device ----------------------------------------
+    check(losses[-1] < losses[0], f"(c) loss did not fall: {losses}")
+    check(abs(losses[0] - math.log(VIT["n_classes"])) <=
+          0.3 * math.log(VIT["n_classes"]),
+          f"(c) first loss {losses[0]} not within 30% of ln "
+          f"{VIT['n_classes']}")
+    _, _, rlosses, _ = run("(c) remat", dataclasses.replace(cfg, remat=True),
+                           None, 1, [2 * layers] + one_k[1:])
+    check(abs(rlosses[0] - losses[0]) <= REMAT_LOSS_RTOL * abs(losses[0]),
+          f"(c) remat loss {rlosses[0]} differs from {losses[0]}")
+    grads = {}
+    for impl in ("flash", "dense"):
+        c = dataclasses.replace(cfg32, attention_impl=impl)
+        params = clone_tree(params0)
+        leaves = [x.requires_grad_(True) for x in tree_leaves(params)]
+        loss = vit_loss_fn(params, batch, c)
+        grads[impl] = (loss.item(), torch.autograd.grad(loss, leaves))
+        del params, leaves, loss
+    (lf, gf), (ld, gd) = grads["flash"], grads["dense"]
+    worst = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                .item() for a, b in zip(gf, gd))
+    print(f"(c) remat step: loss {rlosses[0]!r} (plain {losses[0]!r}), kernel "
+          f"1 twice a layer; float32 step, flash against dense: loss {lf!r} "
+          f"vs {ld!r}, {len(gf)} gradient leaves, worst max|diff|/max|grad| "
+          f"{worst!r} (limits {TRAIN_LOSS_RTOL}, {TRAIN_GRAD_REL})")
+    check(abs(lf - ld) <= TRAIN_LOSS_RTOL * abs(ld),
+          f"(c) float32 flash loss {lf} vs dense {ld}")
+    check(all(bool(torch.isfinite(a).all()) for a in gf) and
+          worst <= TRAIN_GRAD_REL,
+          f"(c) float32 gradients, flash against dense: {worst}")
+    del grads, gf, gd
+    torch.cuda.empty_cache()
+
+    # ---- (d) the mesh against one device, and the faulty control ----------
+    check(state_m["specs"]["blocks"][0]["w1"] == (None, "tp"),
+          f"(d) w1's spec {state_m['specs']['blocks'][0]['w1']}")
+    tpm.ring_allreduce = (lambda contribs, ring, op="sum":
+                          contribs[:1].expand_as(contribs))
+    try:
+        _, cstate, closses, _ = run("(d) control", cfg, mesh,
+                                    VIT_MESH_STEPS, one_k)
+    finally:
+        tpm.ring_allreduce = ring_allreduce
+    mesh_p = [x.detach() for x in tree_leaves(state_m["params"])]
+    ctrl_p = [x.detach() for x in tree_leaves(cstate["params"])]
+    del cstate
+    lg, pg = loss_gaps(mesh_losses, losses), rel_gap(mesh_p, at3, p0)
+    clg, cpg = loss_gaps(closses, losses), rel_gap(ctrl_p, at3, p0)
+    print(f"(d) (dp 2, sp 2, tp 2) against one device over "
+          f"{VIT_MESH_STEPS} steps: relative loss gaps {lg} (rtol "
+          f"{VIT_MESH_LOSS_RTOL}), parameter gap ||p - p_one|| / ||p_one - "
+          f"p_0|| {pg!r} (limit {VIT_MESH_PARAM_REL}); control (rank 0's "
+          f"partials): losses {closses}, gaps {clg}, parameter gap {cpg!r}; "
+          f"w1's spec "
+          f"{state_m['specs']['blocks'][0]['w1']}")
+    check(max(lg) <= VIT_MESH_LOSS_RTOL and pg <= VIT_MESH_PARAM_REL,
+          f"(d) mesh against one device: gaps {lg}, {pg}")
+    check(min(clg) > VIT_MESH_LOSS_RTOL and cpg > VIT_MESH_PARAM_REL,
+          f"(d) the control's gaps {clg}, {cpg} fall inside the limits")
+    del mesh_p, ctrl_p, at3
+    torch.cuda.empty_cache()
+
+    # ---- times: one device and the mesh, interleaved; a profiled step ------
+    times = {"one device": [], "mesh": []}
+    for _ in range(VIT_REPEATS):
+        for label, fn, st in (("one device", step1, state1),
+                              ("mesh", step_m, state_m)):
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(VIT_TIMED):
+                fn(st, batch)
+            end.record()
+            torch.cuda.synchronize()
+            times[label].append(start.elapsed_time(end) / VIT_TIMED)
+    one_ms = min(times["one device"])
+    flops = vit_flops_per_step(cfg, VIT_BATCH)
+    peak = peak_bf16_tflops(torch.cuda.get_device_name(0))
+    tflops = [flops / ms / 1e9 for ms in times["one device"]]
+    print(f"(c) ms per step (CUDA events, {VIT_TIMED} steps a repeat, "
+          f"{VIT_REPEATS} interleaved repeats): one device "
+          f"{times['one device']}, (d) mesh {times['mesh']}; one device "
+          f"{VIT_BATCH / max(times['one device']) * 1e3!r}-"
+          f"{VIT_BATCH / one_ms * 1e3!r} images/s, {flops!r} model FLOP a "
+          f"step, {min(tflops)!r}-{max(tflops)!r} TFLOP/s, MFU "
+          f"{None if peak is None else max(tflops) / peak!r} against {peak} "
+          f"TFLOP/s dense bf16  [{card}]")
+    profile_steps(lambda: step1(state1, batch), 2, "ViT step", one_ms, card)
+    del state1, state_m
+    torch.cuda.empty_cache()
+    return main_counts
+
+
 def decode_times(dev, gen, card, cfg):
     """Kernel 4 at the flagship decode shape (n_valid 0, 128 and 255) and
     at a long cache of the same widths (t 8192, n_valid 8191): kernel,
@@ -3938,7 +4382,7 @@ def main() -> int:
           f"load unit's and every split's edges; each repeated with n_valid "
           f"in device memory, bitwise equal), max |out err| {max_err!r} "
           f"(tolerances {KERNEL_TOL})")
-    flash_err = check_flash_kernels(dev, gen)
+    flash_err, flash_shape_err = check_flash_kernels(dev, gen)
     ring_err = check_ring_kernels(dev, gen)
 
     # ---- 3. serving: the flagship through generate ---------------------
@@ -4092,7 +4536,11 @@ def main() -> int:
     lora_counts = lora_slice(dev, card, step_ms)
     torch.cuda.empty_cache()
 
-    # ---- 16. result -----------------------------------------------------
+    # ---- 16. the Vision Transformer: classified, trained, on a mesh -----
+    vit_counts = vit_slice(dev, card, flash_shape_err[VIT_FLASH_SHAPE])
+    torch.cuda.empty_cache()
+
+    # ---- 17. result -----------------------------------------------------
     source = "mpi_tpu_torch/ops/csrc/flash_attention.cu"
     kernels = []
     for name, replaces, n in zip(
@@ -4138,7 +4586,8 @@ def main() -> int:
                 "halo_launches": halo_counts.get(row["name"], 0),
                 "moe_launches": moe_counts.get(row["name"], 0),
                 "speculative_launches": spec_counts[row["name"]],
-                "lora_launches": lora_counts[row["name"]]}
+                "lora_launches": lora_counts[row["name"]],
+                "vit_launches": vit_counts[row["name"]]}
                for row in kernels]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,9 @@ axis), the same blocks as a GPipe pipeline over a ``pp`` axis
 (:mod:`.pipeline_lm`), the Mixture-of-Experts FFN with its experts over
 an ``ep`` axis (:mod:`.moe`), KV-cache generation with prompt-lookup
 speculative decoding (:mod:`.speculative`), LoRA fine-tuning
-(:mod:`.lora`), int8 weights, and loading the JAX package's tree."""
+(:mod:`.lora`), int8 weights, and loading the JAX package's tree; and the
+encoder family, the Vision Transformer over the same blocks
+(:mod:`.vit`)."""
 
 from .convert import params_from_jax
 from .generate import decode_step, generate, prefill
@@ -23,6 +25,9 @@ from .transformer import (TransformerConfig, forward, forward_with_aux,
                           full_params, init_params, loss_fn, make_mesh_nd,
                           make_optimizer, make_train_parts, make_train_step,
                           param_specs, rank_state, token_xent)
+from .vit import (ViTConfig, forward_vit, init_vit_params,
+                  make_vit_train_step, vit_loss_fn, vit_param_specs,
+                  vit_params_from_jax)
 
 __all__ = ["TransformerConfig", "init_params", "forward", "forward_with_aux",
            "token_xent", "loss_fn", "make_optimizer", "make_train_parts",
@@ -35,4 +40,6 @@ __all__ = ["TransformerConfig", "init_params", "forward", "forward_with_aux",
            "make_pipelined_train_step", "init_moe_params", "moe_ffn",
            "moe_specs", "lora_init", "lora_delta", "merge_lora",
            "make_lora_train_parts", "make_lora_train_step", "count_params",
-           "lora_from_jax"]
+           "lora_from_jax", "ViTConfig", "init_vit_params", "forward_vit",
+           "vit_loss_fn", "vit_param_specs", "make_vit_train_step",
+           "vit_params_from_jax"]

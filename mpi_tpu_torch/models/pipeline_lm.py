@@ -27,7 +27,7 @@ from ..parallel.pipeline import pipeline_sharded
 from ..parallel.zero import tree_leaves, tree_with_leaves
 from .transformer import (TransformerConfig, _layernorm, block_body,
                           check_mesh, init_params, make_optimizer,
-                          token_xent)
+                          token_xent, train_state)
 
 __all__ = ["stack_block_params", "init_pipelined_params",
            "forward_pipelined", "pipeline_loss_fn",
@@ -153,13 +153,7 @@ def make_pipelined_train_step(cfg: TransformerConfig, mesh: RankMesh,
     build = make_optimizer(optimizer, learning_rate)
 
     def from_params(params: Dict[str, Any]) -> Dict[str, Any]:
-        leaves = tree_leaves(params)
-        for x in leaves:
-            if not x.is_floating_point():
-                raise TypeError(f"mpi_tpu_torch: cannot train a {x.dtype} "
-                                f"parameter")
-            x.requires_grad_(True)
-        return {"params": params, "opt": build(leaves)}
+        return train_state(params, build)
 
     def init_state(generator: torch.Generator) -> Dict[str, Any]:
         return from_params(init_pipelined_params(cfg, generator, mesh,

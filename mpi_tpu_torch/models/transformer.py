@@ -93,10 +93,10 @@ from .moe import aux_loss, init_moe_params, moe_parts
 from .optimizers import build_optimizer, learning_rate_schedule
 
 __all__ = ["TransformerConfig", "init_params", "param_specs", "sanitize_spec",
-           "sane_param_specs", "forward", "forward_with_aux", "apply_rope",
-           "block_body", "token_xent", "loss_fn", "make_optimizer",
-           "make_train_parts", "make_train_step", "full_params",
-           "rank_state", "make_mesh_nd"]
+           "sane_specs", "sane_param_specs", "forward", "forward_with_aux",
+           "apply_rope", "block_body", "token_xent", "loss_fn",
+           "make_optimizer", "train_state", "make_train_parts",
+           "make_train_step", "full_params", "rank_state", "make_mesh_nd"]
 
 # The sequence-parallel attention impls: they run over a mesh's sp axis.
 _SP_IMPLS = ("ring", "ring_flash", "zigzag", "zigzag_flash", "ulysses",
@@ -164,11 +164,14 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     ``N(0, 1) / sqrt(fan_in)``; the draws differ from ``jax.random``'s.
     With ``n_experts > 0`` a block holds the experts' tree (``"moe"``,
     :func:`~mpi_tpu_torch.models.moe.init_moe_params`) in place of ``w1``
-    and ``w2``."""
+    and ``w2``. On the ``"meta"`` device the weights are drawn from
+    nothing: the tree gives the shapes alone."""
     dev = resolve_device(device)
     pd = cfg.param_dtype
 
     def dense(shape, fan_in):
+        if dev.type == "meta":  # shapes alone: nothing to draw
+            return torch.empty(shape, dtype=pd, device=dev)
         w = torch.randn(shape, generator=generator,
                         device=generator.device) / math.sqrt(fan_in)
         return w.to(device=dev, dtype=pd)
@@ -248,10 +251,9 @@ def sanitize_spec(spec: Tuple[Any, ...],
     return tuple(p if p in mesh.axis_names else None for p in spec)
 
 
-def sane_param_specs(cfg: TransformerConfig, params: Any,
-                     mesh: Optional[RankMesh]) -> Any:
-    """:func:`param_specs` laid out as ``params``'s tree, matched by key
-    (a tree in any key order fits), every spec sanitized against
+def sane_specs(specs: Any, params: Any, mesh: Optional[RankMesh]) -> Any:
+    """The spec tree ``specs`` laid out as ``params``'s tree, matched by
+    key (a tree in any key order fits), every spec sanitized against
     ``mesh``."""
     def walk(node, spec):
         if isinstance(node, dict):
@@ -260,7 +262,13 @@ def sane_param_specs(cfg: TransformerConfig, params: Any,
             return [walk(value, sub) for value, sub in zip(node, spec)]
         return sanitize_spec(spec, mesh)
 
-    return walk(params, param_specs(cfg))
+    return walk(params, specs)
+
+
+def sane_param_specs(cfg: TransformerConfig, params: Any,
+                     mesh: Optional[RankMesh]) -> Any:
+    """:func:`param_specs` through :func:`sane_specs`."""
+    return sane_specs(param_specs(cfg), params, mesh)
 
 
 # --------------------------------------------------------------------------
@@ -494,7 +502,8 @@ def _loss_parts(params: Dict[str, Any], tokens: torch.Tensor,
 # Training step
 # --------------------------------------------------------------------------
 
-def check_mesh(mesh: Any, cfg: TransformerConfig) -> None:
+def check_mesh(mesh: Any, cfg: TransformerConfig,
+               embedding: bool = True) -> None:
     """Raise unless ``mesh`` is None or a :class:`RankMesh` this slice
     runs: ``TypeError`` for another object, ``NotImplementedError`` for
     ranks over several distinct devices and for experts with a ``tp`` axis
@@ -502,7 +511,8 @@ def check_mesh(mesh: Any, cfg: TransformerConfig) -> None:
     (as the JAX package checks), d_ff or the vocabulary (each tp rank
     reads an equal slice of w1, w2 and the embedding), or, with experts,
     its ``ep`` axis does not divide them (each ep rank runs an equal
-    share)."""
+    share). ``embedding=False`` leaves the vocabulary out: an encoder with
+    no token embedding (:mod:`.vit`)."""
     if mesh is None:
         return
     if not isinstance(mesh, RankMesh):
@@ -519,10 +529,12 @@ def check_mesh(mesh: Any, cfg: TransformerConfig) -> None:
         raise ValueError(
             f"mpi_tpu_torch: tp={tp} must divide n_heads={cfg.n_heads} and "
             f"kv_heads={cfg.kv_heads} (GQA shards kv heads over tp too)")
-    if cfg.d_ff % tp or cfg.vocab % tp:
+    if cfg.d_ff % tp or (embedding and cfg.vocab % tp):
         raise ValueError(
             f"mpi_tpu_torch: tp={tp} must divide d_ff={cfg.d_ff} and "
-            f"vocab={cfg.vocab} (w1, w2 and the embedding split over tp)")
+            f"vocab={cfg.vocab} (w1, w2 and the embedding split over tp)"
+            if embedding else f"mpi_tpu_torch: tp={tp} must divide d_ff="
+            f"{cfg.d_ff} (w1 and w2 split over tp)")
     if cfg.n_experts == 0:
         return
     ep = mesh.shape.get("ep", 1)
@@ -557,6 +569,29 @@ def make_optimizer(optimizer: str = "adamw", learning_rate: float = 1e-3,
         return build_optimizer(optimizer, leaves, learning_rate, schedule)
 
     return build
+
+
+def train_state(params: Dict[str, Any],
+                build: Callable[[List[torch.Tensor]], torch.optim.Optimizer],
+                mesh: Optional[RankMesh] = None,
+                specs: Optional[Callable[[Any, RankMesh], Any]] = None
+                ) -> Dict[str, Any]:
+    """The state of a step on one dp rank around ``params``: ``{"params",
+    "opt"}``, every leaf made trainable under the optimizer that ``build``
+    (:func:`make_optimizer`) makes of them; a leaf that is not floating
+    point raises ``TypeError``. Over a mesh the state also holds it
+    (``"mesh"``) and ``specs(params, mesh)`` (``"specs"``), from which
+    :func:`rank_state` reads the tp split."""
+    leaves = tree_leaves(params)
+    for x in leaves:
+        if not x.is_floating_point():
+            raise TypeError(f"mpi_tpu_torch: cannot train a {x.dtype} "
+                            f"parameter")
+        x.requires_grad_(True)
+    state = {"params": params, "opt": build(leaves)}
+    if mesh is not None:
+        state.update(mesh=mesh, specs=specs(params, mesh))
+    return state
 
 
 def _groups(params: Dict[str, Any]) -> List[Any]:
@@ -998,17 +1033,8 @@ def make_train_parts(cfg: TransformerConfig, mesh: Any = None,
         from_params, step = parallel.from_params, parallel.step
     else:  # one dp rank: zero1 and fsdp shard nothing, as in JAX
         def from_params(params: Dict[str, Any]) -> Dict[str, Any]:
-            leaves = tree_leaves(params)
-            for x in leaves:
-                if not x.is_floating_point():
-                    raise TypeError(f"mpi_tpu_torch: cannot train a "
-                                    f"{x.dtype} parameter")
-                x.requires_grad_(True)
-            state = {"params": params, "opt": build(leaves)}
-            if mesh is not None:  # what rank_state reads the tp split from
-                state.update(mesh=mesh,
-                             specs=sane_param_specs(cfg, params, mesh))
-            return state
+            return train_state(params, build, mesh, lambda p, m:
+                               sane_param_specs(cfg, p, m))
 
         def step(state: Dict[str, Any], tokens: torch.Tensor
                  ) -> Tuple[Dict[str, Any], torch.Tensor]:

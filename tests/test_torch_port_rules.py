@@ -28,9 +28,11 @@ import pytest
 import torch
 
 from mpi_tpu_torch import train
-from mpi_tpu_torch.models import (TransformerConfig, generate,
+from mpi_tpu_torch.models import (TransformerConfig, ViTConfig, generate,
                                   generate_lookahead, init_params,
-                                  init_moe_params, make_train_step)
+                                  init_moe_params, init_vit_params,
+                                  make_train_step, make_vit_train_step,
+                                  vit_params_from_jax)
 from mpi_tpu_torch.ops import _build
 from mpi_tpu_torch.ops.attention import (flash_attention, flash_bwd_dkv,
                                          flash_bwd_dq, flash_bwd_dq_delta,
@@ -71,6 +73,7 @@ def test_importing_the_port_loads_no_jax():
             "mpi_tpu_torch.parallel.ulysses, "
             "mpi_tpu_torch.parallel.cache_parallel, "
             "mpi_tpu_torch.models.moe, mpi_tpu_torch.models.speculative, "
+            "mpi_tpu_torch.models.vit, "
             "mpi_tpu_torch.collectives_generic, mpi_tpu_torch.runner, "
             "mpi_tpu_torch.backends.cuda, mpi_tpu_torch.backends.rendezvous, "
             "mpi_tpu_torch.examples.helloworld, "
@@ -142,6 +145,29 @@ def test_moe_entry_points_raise_without_cuda(monkeypatch):
         _, loss = step(state, torch.zeros((2, 9), dtype=torch.long))
         assert loss.device.type == "cpu"
     assert generate(params, prompt, cfg, 2, device="cpu").shape == (1, 2)
+
+
+def test_vit_entry_points_raise_without_cuda(monkeypatch):
+    """The Vision Transformer's parameters and training state, on a mesh
+    too, and its carried-over tree."""
+    cfg = ViTConfig(image_size=8, patch_size=4, n_classes=3, d_model=32,
+                    n_heads=4, n_layers=1, d_ff=64)
+    tree = init_vit_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    mesh = make_mesh(2, axis="tp", devices=["cpu"] * 2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_vit_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vit_params_from_jax({k: v for k, v in tree.items()}, cfg)
+    for m in (None, mesh):
+        init_state, step = make_vit_train_step(cfg, mesh=m)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_state(torch.Generator().manual_seed(0))
+        # Asking for the CPU by name is the one way onto it.
+        state = init_state(torch.Generator().manual_seed(0), device="cpu")
+        _, loss = step(state, (torch.zeros(2, 8, 8, 3),
+                               torch.zeros(2, dtype=torch.long)))
+        assert loss.device.type == "cpu"
 
 
 def test_driver_entry_points_raise_without_cuda(monkeypatch):
