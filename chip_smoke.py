@@ -92,6 +92,19 @@ port's paths and checks what comes out:
   against dense and the position symmetry, each with a causal control
   that must miss, a remat step, a float32 step flash against dense, the mesh
   against one device with a faulty control, ms per batch and per step;
+* the state-space LM: the LRU LM at the width the JAX package measures it
+  (vocab 8192, d_model 1024, 8 layers, d_state 256, d_ff 4096) through
+  ``ssm_forward`` at batch 8, seq 1024, and greedy ``ssm_decode`` of 128
+  tokens after a prompt of 128 in bf16 and float32 (no kernel: the
+  recurrence is a plain doubling scan and an O(1) state a step), and
+  ``ssm_forward_sp`` at seq 8192 over 8 sp ranks on the card (the
+  send/receive kernel for every hop of the sharded linear scan, 7 a
+  layer): kernel 7 at the scan's summary shape against its plain version,
+  the sharded scan against the whole sequence's (rank 0's chunk bitwise)
+  with a wrong-way control, the prefill against sequential steps, float32
+  tokens greedy under a teacher-forced forward with a zeroed-state
+  control, the sp forward against one device in float32 and bf16 with a
+  carry-dropped control, ms per token and per forward;
 
 then times the paths and the kernels, and prints:
 
@@ -103,8 +116,9 @@ then times the paths and the kernels, and prints:
   ``pipeline_launches``, on the pipeline phase, ``halo_launches``, on
   the halo phase, ``moe_launches``, on the Mixture-of-Experts phase, and
   ``speculative_launches``, on the speculative phase,
-  ``lora_launches``, on the LoRA phase, and ``vit_launches``, on the
-  ViT phase, checked against the count worked out from the code),
+  ``lora_launches``, on the LoRA phase, ``vit_launches``, on the ViT
+  phase, and ``ssm_launches``, on the state-space phase, checked against
+  the count worked out from the code),
   its largest error against the plain version, and
   its time beside its bound, the plain version's time and one PyTorch
   library call's time;
@@ -425,6 +439,42 @@ VIT_BF16_LOGITS_ATOL = 0.1
 # would sit 2.2 times under it).
 VIT_MESH_LOSS_RTOL = 4e-4
 VIT_MESH_PARAM_REL = 0.3
+
+# The state-space LM (phase 17) at the width the JAX package measures it
+# (bench.py:476-497 measure_ssm): vocab 8192, d_model 1024, 8 layers,
+# d_state 256, d_ff 4096, batch 8, seq 1024, a prompt of 128 and 128 new
+# tokens; bf16 compute (measure_ssm's choice on the TPU) over float32
+# masters, the recurrence in complex64. The sp path at the long-context
+# phase's seq 8192 over 8 sp ranks, batch 8. Nothing cut.
+SSM = dict(vocab=8192, d_model=1024, n_layers=8, d_state=256, d_ff=4096)
+SSM_SEQ = 1024
+SSM_SP = 8
+SSM_SP_SEQ = 8192
+SSM_REPEATS = 3
+# The sharded scan at (8, 8192, 256) complex64, |a| in [0.4, 0.99), against
+# the whole sequence's doubling scan: the chunk scans and the carry fold
+# combine in another tree than the whole scan's 13 rounds, so float32
+# rounding parts them by ulps of |x|; rank 0's chunk is the local scan bit
+# for bit. Measured (NVIDIA H100 80GB HBM3, 700.00 W): 9.5e-7 on |x| up to
+# 10.1; the wrong-way control 8.68.
+SSM_SCAN_TOL = (1e-4, 1e-4)
+# Float32 (TF32 off): the sp forward against one device, and sequential
+# steps against the scan (states, last logits): tests/test_ssm.py's 3e-3
+# and 2e-3; a decoded token within SSM_FP32_TIE of its teacher-forced
+# row's largest logit (a near-tie printed when it is not the argmax).
+SSM_SP_TOL = (3e-3, 3e-3)
+SSM_STEP_TOL = (2e-3, 2e-3)
+SSM_FP32_TIE = 2e-3
+# bf16: the recurrence's float32 rounding flips a bf16 rounding of y here
+# and there, and the flips travel through 8 layers. Relative L2 gap
+# ||got - want|| / ||want|| of the logits (and of the states), bf16's own
+# scale (one bf16 step is 2**-8 relative). Measured (NVIDIA H100 80GB
+# HBM3, 700.00 W): prefill against steps 7.7e-3 (states), 8.7e-3 (logits);
+# sp against one device 7.4e-3, the carry-dropped control 8.2e-2: the
+# limit sits 2.7 times over the sound gap and 4.1 times under the
+# control's (float32: 9.8e-6 against the control's 4.78).
+SSM_BF16_STEP_REL = 2e-2
+SSM_BF16_SP_REL = 2e-2
 
 N_REQUESTS = 3
 BATCH = 8
@@ -4202,6 +4252,388 @@ def vit_slice(dev, card, flash_err):
     return main_counts
 
 
+def ssm_launches(layers, sp, forwards):
+    """Kernel-7 launches of ``forwards`` sp forwards of the state-space LM,
+    counted from the code: each layer's ``sharded_linear_scan`` hops the
+    a- and the b-summary once a Hillis-Steele round (⌈log2 sp⌉ rounds) and
+    the carry once; nothing at sp 1."""
+    import math
+
+    hops = 0 if sp == 1 else 2 * math.ceil(math.log2(sp)) + 1
+    return forwards * layers * hops
+
+
+def rel_l2(got, want) -> float:
+    """||got - want|| / ||want|| in float64 (complex values as pairs)."""
+    import torch
+
+    if got.is_complex():
+        got, want = torch.view_as_real(got), torch.view_as_real(want)
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm())
+
+
+def ssm_slice(dev, card):
+    """Phase 17: the state-space LM (``models/ssm.py``) served at
+    measure_ssm's width (SSM), bf16 compute over float32 masters, and its
+    sequence-parallel forward over SSM_SP sp ranks on the card (kernel 7
+    for every hop of ``parallel/scan.py``'s sharded scan). Main path,
+    counted alone: (c) ``ssm_forward`` at (BATCH, SSM_SEQ) and
+    ``ssm_decode`` of BATCH × PROMPT_LEN prompts + NEW_TOKENS in bf16 and
+    in float32 (no kernel); (d) ``ssm_forward_sp`` at (BATCH, SSM_SP_SEQ)
+    in float32 and in bf16, ``ssm_launches`` kernel-7 launches. Then,
+    outside the count: (a) kernel 7 at the scan's summary shape (SSM_SP,
+    BATCH, d_state) complex64 as float32 pairs, bitwise its plain version,
+    timed beside its bound, the plain version and ``index_select``; (b)
+    ``sharded_linear_scan`` on (BATCH, SSM_SP_SEQ, d_state) complex64,
+    |a| in [0.4, 0.99): within SSM_SCAN_TOL of the whole sequence's
+    ``linear_scan``, rank 0's chunk bitwise the local scan, 7 hops, and
+    the control (every hop the wrong way) outside the tolerance; (c) the
+    prefill's states and last logits against PROMPT_LEN sequential steps
+    (float32 within SSM_STEP_TOL, bf16 within SSM_BF16_STEP_REL), the
+    float32 tokens greedy under a teacher-forced forward (each within
+    SSM_FP32_TIE of its row's largest logit, near-ties printed), the
+    control (a zeroed state after the prefill) outside it, ms per token;
+    (d) float32 within SSM_SP_TOL of one device, bf16 within
+    SSM_BF16_SP_REL, the control (the carry dropped) outside both, ms per
+    forward beside one device's; a profiled decode step and sp forward.
+    Returns ({kernel: launches on the main path}, max |kernel 7 -
+    plain|)."""
+    import importlib
+    import math
+
+    import torch
+
+    from mpi_tpu_torch.models import (SsmConfig, init_ssm_params,
+                                      init_ssm_state, ssm_decode,
+                                      ssm_forward, ssm_forward_sp,
+                                      ssm_prefill, ssm_step)
+    from mpi_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
+                                             flash_fwd)
+    from mpi_tpu_torch.ops.decode_attention import flash_decode_attention
+    from mpi_tpu_torch.ops.ring_collectives import (ring_allgather,
+                                                    ring_allreduce)
+    from mpi_tpu_torch.parallel import (linear_scan, make_mesh, sendrecv,
+                                        sendrecv_plain, sharded_linear_scan)
+    from mpi_tpu_torch.parallel.zero import tree_leaves
+
+    ssm_mod = importlib.import_module("mpi_tpu_torch.models.ssm")
+    scan_mod = importlib.import_module("mpi_tpu_torch.parallel.scan")
+    wrappers = {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
+                "flash_bwd_dkv": flash_bwd_dkv,
+                "flash_decode_attention": flash_decode_attention,
+                "ring_allgather": ring_allgather,
+                "ring_allreduce": ring_allreduce, "sendrecv": sendrecv}
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on: the float32 checks need full float32 products")
+    cfg = SsmConfig(**SSM, dtype=torch.bfloat16)
+    cfg32 = SsmConfig(**SSM)
+    h, n = cfg.d_state, SSM_SP
+    params = init_ssm_params(cfg, torch.Generator().manual_seed(0))
+    print(f"SSM: {sum(x.numel() for x in tree_leaves(params))} parameters "
+          f"(float32 masters), {SSM}, batch {BATCH}, seq {SSM_SEQ}, sp "
+          f"{n} at seq {SSM_SP_SEQ}")
+    mesh = make_mesh(axis="sp", devices=[dev] * n)
+    hgen = torch.Generator().manual_seed(17)
+    tokens = torch.randint(0, cfg.vocab, (BATCH, SSM_SEQ), generator=hgen)
+    long_toks = torch.randint(0, cfg.vocab, (BATCH, SSM_SP_SEQ),
+                              generator=hgen)
+    prompt = tokens[:, :PROMPT_LEN].to(dev)
+
+    # ---- the main path, counted alone ------------------------------------
+    for w in wrappers.values():
+        w.launches = 0
+    with torch.no_grad():
+        logits = ssm_forward(cfg, params, tokens)
+        out16 = ssm_decode(cfg, params, prompt, NEW_TOKENS)
+        out32 = ssm_decode(cfg32, params, prompt, NEW_TOKENS)
+        sp32 = ssm_forward_sp(cfg32, params, long_toks, mesh)
+        sp16 = ssm_forward_sp(cfg, params, long_toks, mesh)
+    torch.cuda.synchronize()
+    main_counts = {name: w.launches for name, w in wrappers.items()}
+    want = {name: 0 for name in wrappers}
+    want["sendrecv"] = ssm_launches(cfg.n_layers, n, 2)
+    check(main_counts == want,
+          f"SSM path launched {main_counts}, want {want} (counted from the "
+          f"code: 2 sp forwards x {cfg.n_layers} layers x "
+          f"{ssm_launches(1, n, 1)} hops)")
+    check(logits.shape == (BATCH, SSM_SEQ, cfg.vocab) and
+          logits.dtype == torch.bfloat16 and
+          bool(torch.isfinite(logits).all()),
+          f"ssm_forward: logits {logits.dtype} {tuple(logits.shape)}, or "
+          f"not finite")
+    for label, out in (("bf16", out16), ("float32", out32)):
+        check(tuple(out.shape) == (BATCH, PROMPT_LEN + NEW_TOKENS) and
+              out.device.type == "cuda" and torch.equal(out[:, :PROMPT_LEN],
+                                                        prompt) and
+              bool(((out >= 0) & (out < cfg.vocab)).all()),
+              f"ssm_decode {label}: tokens {tuple(out.shape)} on "
+              f"{out.device}, the prompt changed, or outside the vocab")
+    for label, out in (("float32", sp32), ("bf16", sp16)):
+        check(out.shape == (BATCH, SSM_SP_SEQ, cfg.vocab) and
+              bool(torch.isfinite(out).all()),
+              f"ssm_forward_sp {label}: {tuple(out.shape)} or not finite")
+    print(f"SSM phase launches (main path: a bf16 forward, bf16 and float32 "
+          f"decodes, float32 and bf16 sp forwards): {main_counts}")
+    del logits
+
+    # ---- (a) kernel 7 at the scan's summary shape --------------------------
+    dgen = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn(n, BATCH, h, 2, generator=dgen, device=dev)
+    perm = [(r, (r + 1) % n) for r in range(n)]
+    src = torch.tensor([(r - 1) % n for r in range(n)], device=dev)
+    got = sendrecv(x, mesh, perm)
+    ref = sendrecv_plain(x, perm)
+    torch.cuda.synchronize()
+    check(bits_equal(got, ref), f"kernel 7 at the scan's summary shape "
+                                f"{tuple(x.shape)} differs from its plain "
+                                f"version")
+    err = max_abs_diff(got, ref)
+    k_ms = kernel_ms(lambda y: sendrecv(y, mesh, perm), [(x,)], 200)
+    p_ms = kernel_ms(lambda y: sendrecv_plain(y, perm), [(x,)], 20)
+    l_ms = kernel_ms(lambda y: y.index_select(0, src), [(x,)], 200)
+    b_ms, b_by = bound(2 * x.numel() * x.element_size(), 0, x.dtype)
+    print(f"(a) kernel 7 at the scan's summary shape {tuple(x.shape)} "
+          f"float32 (({n}, b {BATCH}, h {h}) complex64), bitwise plain: "
+          f"{k_ms * 1e3!r} us against a {b_ms * 1e3!r} us bound ({b_by}), "
+          f"plain {p_ms * 1e3!r} us, index_select {l_ms * 1e3!r} us  "
+          f"[{card}]")
+
+    # ---- (b) the sharded scan against the whole sequence's -----------------
+    shape = (BATCH, SSM_SP_SEQ, h)
+    mod = 0.4 + 0.59 * torch.rand(shape, generator=dgen, device=dev)
+    a = torch.polar(mod, math.pi * torch.rand(shape, generator=dgen,
+                                              device=dev))
+    b = torch.complex(torch.randn(shape, generator=dgen, device=dev),
+                      torch.randn(shape, generator=dgen, device=dev))
+    del mod
+
+    def stack(t):
+        return t.reshape(BATCH, n, -1, h).transpose(0, 1)
+
+    def unstack(t):
+        return t.transpose(0, 1).reshape(shape)
+
+    def scan_gap(got, want):
+        g, w = torch.view_as_real(got), torch.view_as_real(want)
+        return max_abs_diff(g, w), torch.allclose(
+            g, w, atol=SSM_SCAN_TOL[0], rtol=SSM_SCAN_TOL[1])
+
+    with torch.no_grad():
+        whole = linear_scan(a, b, dim=1)
+        before = sendrecv.launches
+        sharded = sharded_linear_scan(stack(a), stack(b), mesh, dim=1)
+        torch.cuda.synchronize()
+        hops = sendrecv.launches - before
+        local0 = linear_scan(stack(a)[0], stack(b)[0], dim=1)
+        gap, ok = scan_gap(unstack(sharded), whole)
+        rank0 = bits_equal(torch.view_as_real(sharded[0]),
+                           torch.view_as_real(local0))
+        sound_hop = scan_mod._hop
+        scan_mod._hop = lambda t, ring, shift: sound_hop(t, ring, -shift)
+        try:
+            wrong = sharded_linear_scan(stack(a), stack(b), mesh, dim=1)
+        finally:
+            scan_mod._hop = sound_hop
+        ctrl_gap, ctrl_ok = scan_gap(unstack(wrong), whole)
+    print(f"(b) sharded_linear_scan {shape} complex64 over {n} sp ranks: "
+          f"{hops} kernel-7 launches; max |diff| to the whole sequence's "
+          f"linear_scan {gap!r} (max |x| "
+          f"{float(whole.abs().max())!r}; tolerance {SSM_SCAN_TOL}); rank "
+          f"0's chunk bitwise the local scan: {rank0}; the control (every "
+          f"hop the wrong way) {ctrl_gap!r}")
+    check(hops == ssm_launches(1, n, 1),
+          f"the sharded scan launched kernel 7 {hops} times, want "
+          f"{ssm_launches(1, n, 1)}")
+    check(ok, f"the sharded scan differs from the whole sequence's by {gap}")
+    check(rank0, "rank 0's chunk of the sharded scan is not the local "
+                 "scan's bits")
+    check(not ctrl_ok, f"the wrong-way control passed the tolerance "
+                       f"({ctrl_gap})")
+    scan_ms = kernel_ms(lambda p, q: sharded_linear_scan(
+        stack(p), stack(q), mesh, dim=1), [(a, b)], 3)
+    whole_ms = kernel_ms(lambda p, q: linear_scan(p, q, dim=1), [(a, b)], 3)
+    print(f"(b) ms a scan: sharded over {n} ranks {scan_ms!r}, the whole "
+          f"sequence on one device {whole_ms!r} (CUDA events)  [{card}]")
+    del a, b, whole, sharded, local0, wrong
+    torch.cuda.empty_cache()
+
+    # ---- (c) one device: prefill against steps, greedy decode ---------------
+    with torch.no_grad():
+        for c, label in ((cfg32, "float32"), (cfg, "bf16")):
+            st_p, lg_p = ssm_prefill(c, params, prompt)
+            st = init_ssm_state(c, BATCH)
+            for i in range(PROMPT_LEN):
+                st, lg = ssm_step(c, params, st, prompt[:, i])
+            st_abs = max(max_abs_diff(torch.view_as_real(p),
+                                      torch.view_as_real(q))
+                         for p, q in zip(st_p, st))
+            st_rel = max(rel_l2(p, q) for p, q in zip(st_p, st))
+            lg_abs, lg_rel = max_abs_diff(lg_p, lg), rel_l2(lg_p, lg)
+            print(f"(c) {label} prefill of {PROMPT_LEN} against "
+                  f"{PROMPT_LEN} steps: states max |diff| {st_abs!r} "
+                  f"(relative L2 {st_rel!r}), last logits max |diff| "
+                  f"{lg_abs!r} (relative L2 {lg_rel!r})")
+            if c is cfg32:
+                check(all(torch.allclose(
+                    torch.view_as_real(p), torch.view_as_real(q),
+                    atol=SSM_STEP_TOL[0], rtol=SSM_STEP_TOL[1])
+                    for p, q in zip(st_p, st)) and torch.allclose(
+                    lg_p, lg, atol=SSM_STEP_TOL[0], rtol=SSM_STEP_TOL[1]),
+                    f"float32 prefill against steps: states {st_abs}, "
+                    f"logits {lg_abs} (tolerance {SSM_STEP_TOL})")
+            else:
+                check(st_rel <= SSM_BF16_STEP_REL and
+                      lg_rel <= SSM_BF16_STEP_REL,
+                      f"bf16 prefill against steps: relative L2 states "
+                      f"{st_rel}, logits {lg_rel} (limit "
+                      f"{SSM_BF16_STEP_REL})")
+
+    def greedy_gaps(c, out):
+        """(b, NEW_TOKENS) float32: how far each new token's logit lies
+        below its row's largest under one teacher-forced forward."""
+        with torch.no_grad():
+            lg = ssm_forward(c, params, out[:, :-1])[:, PROMPT_LEN - 1:]
+        lg = lg.float()
+        picked = lg.gather(-1, out[:, PROMPT_LEN:, None])[..., 0]
+        return lg.max(-1).values - picked
+
+    g32 = greedy_gaps(cfg32, out32)
+    ties = [(int(r), int(p), float(g32[r, p]))
+            for r, p in (g32 > 0).nonzero().tolist()]
+    g16 = greedy_gaps(cfg, out16)
+    print(f"(c) float32 decode, {BATCH} x {NEW_TOKENS} tokens: "
+          f"{int((g32 == 0).sum())} the teacher-forced argmax; near-ties "
+          f"(row, position, gap to the row max; limit {SSM_FP32_TIE}): "
+          f"{ties}. bf16 decode: {int((g16 == 0).sum())} the bf16 "
+          f"teacher-forced argmax, largest gap {float(g16.max())!r}; "
+          f"agreement with float32 "
+          f"{float((out16 == out32).float().mean())!r}")
+    check(float(g32.max()) <= SSM_FP32_TIE,
+          f"float32 decode: a token lies {float(g32.max())} below its "
+          f"teacher-forced row max (limit {SSM_FP32_TIE})")
+    sound_prefill = ssm_mod._prefill
+
+    def zeroed(c, p, toks):
+        states, lg = sound_prefill(c, p, toks)
+        return [torch.zeros_like(s) for s in states], lg
+
+    ssm_mod._prefill = zeroed
+    try:
+        ctrl = ssm_decode(cfg32, params, prompt, NEW_TOKENS)
+    finally:
+        ssm_mod._prefill = sound_prefill
+    cg = float(greedy_gaps(cfg32, ctrl).max())
+    print(f"(c) control (the state zeroed after the prefill), float32: "
+          f"largest gap to the teacher-forced row max {cg!r} (limit "
+          f"{SSM_FP32_TIE}); agreement with the sound decode "
+          f"{float((ctrl == out32).float().mean())!r}")
+    check(cg > SSM_FP32_TIE, f"the zeroed-state control passed the greedy "
+                             f"check (gap {cg})")
+
+    times = {"bf16": [], "float32": []}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(SSM_REPEATS):
+        for label, c in (("bf16", cfg), ("float32", cfg32)):
+            torch.cuda.synchronize()
+            start.record()
+            ssm_decode(c, params, prompt, NEW_TOKENS)
+            end.record()
+            torch.cuda.synchronize()
+            times[label].append(start.elapsed_time(end) / NEW_TOKENS)
+    for label, ts in times.items():
+        print(f"(c) ssm_decode {label}: {ts} ms per token (the prefill of "
+              f"{PROMPT_LEN} and {NEW_TOKENS - 1} steps over {NEW_TOKENS} "
+              f"tokens, batch {BATCH}; {BATCH / max(ts) * 1e3!r}-"
+              f"{BATCH / min(ts) * 1e3!r} tok/s; CUDA events, "
+              f"{SSM_REPEATS} interleaved repeats)  [{card}]")
+    del out16, out32, ctrl
+    torch.cuda.empty_cache()
+
+    # ---- (d) the sp forward against one device -----------------------------
+    sound_scan = ssm_mod.sharded_linear_scan
+
+    def dropped(coef, drive, ring, axis_name="sp", dim=0):
+        return linear_scan(coef, drive, dim=dim + 1)  # each chunk alone
+
+    with torch.no_grad():
+        one32 = ssm_forward(cfg32, params, long_toks)
+        gap32 = max_abs_diff(sp32, one32)
+        ok32 = torch.allclose(sp32, one32, atol=SSM_SP_TOL[0],
+                              rtol=SSM_SP_TOL[1])
+        ssm_mod.sharded_linear_scan = dropped
+        try:
+            ctrl32 = ssm_forward_sp(cfg32, params, long_toks, mesh)
+        finally:
+            ssm_mod.sharded_linear_scan = sound_scan
+        cgap32 = max_abs_diff(ctrl32, one32)
+        cok32 = torch.allclose(ctrl32, one32, atol=SSM_SP_TOL[0],
+                               rtol=SSM_SP_TOL[1])
+        del ctrl32, one32, sp32
+        torch.cuda.empty_cache()
+        one16 = ssm_forward(cfg, params, long_toks)
+        rel16, gap16 = rel_l2(sp16, one16), max_abs_diff(sp16, one16)
+        ssm_mod.sharded_linear_scan = dropped
+        try:
+            ctrl16 = ssm_forward_sp(cfg, params, long_toks, mesh)
+        finally:
+            ssm_mod.sharded_linear_scan = sound_scan
+        crel16 = rel_l2(ctrl16, one16)
+        del ctrl16, one16, sp16
+    torch.cuda.empty_cache()
+    print(f"(d) ssm_forward_sp over {n} sp ranks at ({BATCH}, "
+          f"{SSM_SP_SEQ}) against ssm_forward on one device: float32 max "
+          f"|diff| {gap32!r} (tolerance {SSM_SP_TOL}), bf16 relative L2 "
+          f"{rel16!r} (max |diff| {gap16!r}; limit {SSM_BF16_SP_REL}); the "
+          f"control (the carry dropped): float32 max |diff| {cgap32!r}, "
+          f"bf16 relative L2 {crel16!r}")
+    check(ok32, f"float32 sp forward differs from one device by {gap32}")
+    check(rel16 <= SSM_BF16_SP_REL,
+          f"bf16 sp forward: relative L2 {rel16} over {SSM_BF16_SP_REL}")
+    check(not cok32 and crel16 > SSM_BF16_SP_REL,
+          f"the carry-dropped control passed a check: float32 {cgap32}, "
+          f"bf16 {crel16}")
+
+    fwd_times = {key: [] for key in ("sp bf16", "one bf16", "sp float32",
+                                     "one float32")}
+    calls = {"sp bf16": lambda: ssm_forward_sp(cfg, params, long_toks, mesh),
+             "one bf16": lambda: ssm_forward(cfg, params, long_toks),
+             "sp float32": lambda: ssm_forward_sp(cfg32, params, long_toks,
+                                                  mesh),
+             "one float32": lambda: ssm_forward(cfg32, params, long_toks)}
+    with torch.no_grad():
+        for fn in calls.values():
+            fn()
+        for _ in range(SSM_REPEATS):
+            for key, fn in calls.items():
+                torch.cuda.synchronize()
+                start.record()
+                fn()
+                end.record()
+                torch.cuda.synchronize()
+                fwd_times[key].append(start.elapsed_time(end))
+    print(f"(d) ms a forward at ({BATCH}, {SSM_SP_SEQ}) (CUDA events, "
+          f"{SSM_REPEATS} interleaved repeats): {fwd_times}; "
+          f"{BATCH * SSM_SP_SEQ / min(fwd_times['sp bf16']) * 1e3!r} tok/s "
+          f"sp bf16 at best  [{card}]")
+
+    # ---- where a decode step's and an sp forward's time goes ---------------
+    with torch.no_grad():
+        dparams = ssm_mod._cast_weights(cfg, params)
+        state, lg = ssm_prefill(cfg, dparams, prompt)
+        tok = lg.argmax(-1)
+        ssm_step(cfg, dparams, state, tok)
+        profile_steps(lambda: ssm_step(cfg, dparams, state, tok), 4,
+                      "SSM bf16 decode step", min(times["bf16"]), card)
+        profile_steps(lambda: ssm_forward_sp(cfg, params, long_toks, mesh),
+                      1, "SSM bf16 sp forward", min(fwd_times["sp bf16"]),
+                      card)
+    del params, dparams, state
+    torch.cuda.empty_cache()
+    return main_counts, err
+
+
 def decode_times(dev, gen, card, cfg):
     """Kernel 4 at the flagship decode shape (n_valid 0, 128 and 255) and
     at a long cache of the same widths (t 8192, n_valid 8191): kernel,
@@ -4540,7 +4972,11 @@ def main() -> int:
     vit_counts = vit_slice(dev, card, flash_shape_err[VIT_FLASH_SHAPE])
     torch.cuda.empty_cache()
 
-    # ---- 17. result -----------------------------------------------------
+    # ---- 17. the state-space LM: served, sequence-parallel --------------
+    ssm_counts, ssm_err = ssm_slice(dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- 18. result -----------------------------------------------------
     source = "mpi_tpu_torch/ops/csrc/flash_attention.cu"
     kernels = []
     for name, replaces, n in zip(
@@ -4572,8 +5008,8 @@ def main() -> int:
                         "max_abs_err": max(ring_err[name], slice_err[name],
                                            dp_err.get(name, 0.0),
                                            tp_err.get(name, 0.0),
-                                           halo_err if name == "sendrecv"
-                                           else 0.0),
+                                           max(halo_err, ssm_err)
+                                           if name == "sendrecv" else 0.0),
                         **ring_rows[name]})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -4587,7 +5023,8 @@ def main() -> int:
                 "moe_launches": moe_counts.get(row["name"], 0),
                 "speculative_launches": spec_counts[row["name"]],
                 "lora_launches": lora_counts[row["name"]],
-                "vit_launches": vit_counts[row["name"]]}
+                "vit_launches": vit_counts[row["name"]],
+                "ssm_launches": ssm_counts[row["name"]]}
                for row in kernels]
     print(card)
     print(json.dumps({"kernels": kernels}))

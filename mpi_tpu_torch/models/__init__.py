@@ -7,9 +7,10 @@ axis), the same blocks as a GPipe pipeline over a ``pp`` axis
 (:mod:`.pipeline_lm`), the Mixture-of-Experts FFN with its experts over
 an ``ep`` axis (:mod:`.moe`), KV-cache generation with prompt-lookup
 speculative decoding (:mod:`.speculative`), LoRA fine-tuning
-(:mod:`.lora`), int8 weights, and loading the JAX package's tree; and the
+(:mod:`.lora`), int8 weights, and loading the JAX package's tree; the
 encoder family, the Vision Transformer over the same blocks
-(:mod:`.vit`)."""
+(:mod:`.vit`); and the state-space LM, served on one device and
+sequence-parallel over an ``sp`` axis (:mod:`.ssm`)."""
 
 from .convert import params_from_jax
 from .generate import decode_step, generate, prefill
@@ -21,6 +22,9 @@ from .pipeline_lm import (forward_pipelined, init_pipelined_params,
                           stack_block_params)
 from .quant import QTensor, dequantize, quantize, quantize_params
 from .speculative import generate_lookahead
+from .ssm import (SsmConfig, init_ssm_params, init_ssm_state, ssm_decode,
+                  ssm_forward, ssm_forward_sp, ssm_params_from_jax,
+                  ssm_prefill, ssm_step)
 from .transformer import (TransformerConfig, forward, forward_with_aux,
                           full_params, init_params, loss_fn, make_mesh_nd,
                           make_optimizer, make_train_parts, make_train_step,
@@ -42,4 +46,6 @@ __all__ = ["TransformerConfig", "init_params", "forward", "forward_with_aux",
            "make_lora_train_parts", "make_lora_train_step", "count_params",
            "lora_from_jax", "ViTConfig", "init_vit_params", "forward_vit",
            "vit_loss_fn", "vit_param_specs", "make_vit_train_step",
-           "vit_params_from_jax"]
+           "vit_params_from_jax", "SsmConfig", "init_ssm_params",
+           "ssm_forward", "ssm_forward_sp", "init_ssm_state", "ssm_step",
+           "ssm_prefill", "ssm_decode", "ssm_params_from_jax"]

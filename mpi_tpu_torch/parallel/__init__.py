@@ -6,8 +6,9 @@ and cache-parallel decode, the ZeRO-1 / FSDP layouts over its ``dp``
 axis (``parallel/zero.py``, imported as a module), Megatron's
 reductions over its ``tp`` axis (``parallel/tensor_parallel.py``, imported
 as a module; no JAX twin: GSPMD inserts them there), GPipe over its ``pp``
-axis, and the halo exchange and Jacobi sweeps of a block-sharded grid;
-counterpart of ``mpi_tpu/parallel``.
+axis, the halo exchange and Jacobi sweeps of a block-sharded grid, and
+the linear scan, sequence-parallel over its ``sp`` axis (the state-space
+LM's recurrence); counterpart of ``mpi_tpu/parallel``.
 The ring kernels live in ``mpi_tpu_torch/ops/ring_collectives.py``, as in
 the JAX package."""
 
@@ -23,6 +24,7 @@ from .ring_attention import (ring_attention, ring_attention_sharded,
 from .ulysses import ulysses_attention, ulysses_attention_sharded
 from .pipeline import pipeline, pipeline_sharded
 from .halo import halo_exchange, jacobi_step_1d, jacobi_step_2d
+from .scan import linear_scan, sharded_linear_scan
 from .cache_parallel import (cache_parallel_decode_attention,
                              merge_decode_partials)
 
@@ -35,4 +37,5 @@ __all__ = ["RANK_AXIS", "RankMesh", "rank_axis", "mesh_devices", "make_mesh",
            "zigzag_indices", "zigzag_inverse_indices", "ulysses_attention",
            "ulysses_attention_sharded", "cache_parallel_decode_attention",
            "merge_decode_partials", "pipeline", "pipeline_sharded",
-           "halo_exchange", "jacobi_step_1d", "jacobi_step_2d"]
+           "halo_exchange", "jacobi_step_1d", "jacobi_step_2d",
+           "linear_scan", "sharded_linear_scan"]

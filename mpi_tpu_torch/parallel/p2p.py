@@ -236,17 +236,19 @@ class _RingShift(torch.autograd.Function):
     """The hop with a gradient: its backward is the reverse hop."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return ring_hop(x, mesh)
+    def forward(ctx, x, mesh, shift):
+        ctx.mesh, ctx.shift = mesh, shift
+        return ring_hop(x, mesh, shift)
 
     @staticmethod
     def backward(ctx, g):
-        return ring_hop(g, ctx.mesh, -1), None
+        return ring_hop(g, ctx.mesh, -ctx.shift), None, None
 
 
-def ring_shift(x: torch.Tensor, mesh: RankMesh) -> torch.Tensor:
-    """:func:`ring_hop` by one rank, differentiable: the ring attention
-    fold's and the pipeline's hop (``lax.ppermute`` ``i → i+1 mod n`` in
-    the JAX package), one kernel-7 launch forward and one backward."""
-    return _RingShift.apply(x, mesh)
+def ring_shift(x: torch.Tensor, mesh: RankMesh, shift: int = 1
+               ) -> torch.Tensor:
+    """:func:`ring_hop` by ``shift`` ranks, differentiable: the ring
+    attention fold's and the pipeline's hop (``lax.ppermute`` ``i → i+1 mod
+    n`` in the JAX package) and the linear scan's (``pshift`` by ``d``),
+    one kernel-7 launch forward and one backward, the reverse hop."""
+    return _RingShift.apply(x, mesh, shift)

@@ -1,16 +1,18 @@
 """Serve the flagship decoder LM with KV-cache decode on the GPU.
 
-The port's counterpart of parts 1-3 of ``examples/serve.py``: greedy
-KV-cache decode, the same with weight-only int8 weights, and prompt-lookup
-speculative decoding (``generate_lookahead``, ``--draft-len`` tokens
-verified a forward, an ``--ngram`` lookup key), at the flagship decode
+The port's counterpart of ``examples/serve.py``: greedy KV-cache decode,
+the same with weight-only int8 weights, prompt-lookup speculative decoding
+(``generate_lookahead``, ``--draft-len`` tokens verified a forward, an
+``--ngram`` lookup key), and the state-space LM's recurrent decode
+(``ssm_decode``: no KV cache, an O(1) state a layer; the example's small
+SSM, 2 layers of the flagship's widths with d_state 32, float32), at the
+flagship decode
 configuration (d_model 1024, 8 layers, 8 heads of 128, d_ff 4096, vocab
 8192, batch 8, 128 prompt and 128 new tokens, bf16), with each decode
 step's attention in the flash-decode kernel (the speculative path's verify
 forwards take the dense cached attention). Weights are random, drawn from
 ``--seed``. Prints the time of each call and its tokens per second, and the
-int8 and speculative tokens' agreement with bf16 greedy. The state-space
-model is not ported yet.
+int8 and speculative tokens' agreement with bf16 greedy.
 
 Run::
 
@@ -28,8 +30,9 @@ from typing import Optional
 
 import torch
 
-from .models import (TransformerConfig, generate, generate_lookahead,
-                     init_params, quantize_params)
+from .models import (SsmConfig, TransformerConfig, generate,
+                     generate_lookahead, init_params, init_ssm_params,
+                     quantize_params, ssm_decode)
 from .utils.platform import resolve_device
 
 __all__ = ["flagship_config", "main"]
@@ -105,8 +108,19 @@ def main(argv: Optional[list] = None) -> int:
     q = run("greedy decode (int8)", quantize_params(params))
     spec = run("speculative decode", params, generate_lookahead,
                draft_len=args.draft_len, ngram=args.ngram)
+    # The state-space LM: recurrent decode with no KV cache (its per-token
+    # cost does not grow with the context). ssm_decode returns the prompt
+    # and the new tokens.
+    scfg = SsmConfig(vocab=cfg.vocab, d_model=cfg.d_model, n_layers=2,
+                     d_state=32, d_ff=cfg.d_ff)
+    sparams = init_ssm_params(
+        scfg, torch.Generator().manual_seed(args.seed + 1), dev)
+    ssm = run("ssm decode (no KV cache)", sparams,
+              lambda p, head, c, n, device: ssm_decode(
+                  scfg, p, head, n, device=device)[:, head.shape[1]:])
     valid = all(bool(((t >= 0) & (t < cfg.vocab)).all())
-                for t in (ref, q, spec))
+                for t in (ref, q, spec, ssm)) and \
+        tuple(ssm.shape) == (args.batch, args.tokens)
     agree = float((q == ref).float().mean())
     spec_agree = float((spec == ref).float().mean())
     print(f"outputs in vocab: {valid}   int8 agreement with bf16 greedy: "

@@ -28,10 +28,14 @@ import pytest
 import torch
 
 from mpi_tpu_torch import train
-from mpi_tpu_torch.models import (TransformerConfig, ViTConfig, generate,
-                                  generate_lookahead, init_params,
-                                  init_moe_params, init_vit_params,
-                                  make_train_step, make_vit_train_step,
+from mpi_tpu_torch.models import (SsmConfig, TransformerConfig, ViTConfig,
+                                  generate, generate_lookahead,
+                                  init_moe_params, init_params,
+                                  init_ssm_params, init_ssm_state,
+                                  init_vit_params, make_train_step,
+                                  make_vit_train_step, ssm_decode,
+                                  ssm_forward, ssm_forward_sp,
+                                  ssm_params_from_jax, ssm_prefill, ssm_step,
                                   vit_params_from_jax)
 from mpi_tpu_torch.ops import _build
 from mpi_tpu_torch.ops.attention import (flash_attention, flash_bwd_dkv,
@@ -46,6 +50,7 @@ from mpi_tpu_torch.ops.ring_collectives import (ring_allgather,
                                                 ring_allreduce_sharded)
 from mpi_tpu_torch.parallel import make_mesh, sendrecv, sendrecv_sharded
 from mpi_tpu_torch.parallel import (cache_parallel_decode_attention,
+                                    sharded_linear_scan,
                                     ulysses_attention_sharded)
 from mpi_tpu_torch.parallel import collectives as pcoll
 from mpi_tpu_torch import run_main
@@ -73,7 +78,8 @@ def test_importing_the_port_loads_no_jax():
             "mpi_tpu_torch.parallel.ulysses, "
             "mpi_tpu_torch.parallel.cache_parallel, "
             "mpi_tpu_torch.models.moe, mpi_tpu_torch.models.speculative, "
-            "mpi_tpu_torch.models.vit, "
+            "mpi_tpu_torch.models.vit, mpi_tpu_torch.models.ssm, "
+            "mpi_tpu_torch.parallel.scan, "
             "mpi_tpu_torch.collectives_generic, mpi_tpu_torch.runner, "
             "mpi_tpu_torch.backends.cuda, mpi_tpu_torch.backends.rendezvous, "
             "mpi_tpu_torch.examples.helloworld, "
@@ -168,6 +174,50 @@ def test_vit_entry_points_raise_without_cuda(monkeypatch):
         _, loss = step(state, (torch.zeros(2, 8, 8, 3),
                                torch.zeros(2, dtype=torch.long)))
         assert loss.device.type == "cpu"
+
+
+def test_ssm_entry_points_raise_without_cuda(monkeypatch):
+    """The state-space LM's parameters, carried-over tree, state, forward,
+    sp forward, step, prefill and decode."""
+    cfg = SsmConfig(vocab=64, d_model=32, n_layers=1, d_state=8, d_ff=64)
+    params = init_ssm_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    mesh = make_mesh(2, axis="sp", devices=["cpu"] * 2)
+    state = init_ssm_state(cfg, 1, "cpu")
+    calls = {
+        "init_ssm_params": lambda d=None: init_ssm_params(
+            cfg, torch.Generator().manual_seed(0), d),
+        "ssm_params_from_jax": lambda d=None: ssm_params_from_jax(
+            params, cfg, d),
+        "init_ssm_state": lambda d=None: init_ssm_state(cfg, 1, d),
+        "ssm_forward": lambda d=None: ssm_forward(cfg, params, toks, d),
+        "ssm_forward_sp": lambda d=None: ssm_forward_sp(
+            cfg, params, toks, mesh, device=d),
+        "ssm_step": lambda d=None: ssm_step(cfg, params, state, toks[:, 0],
+                                            d),
+        "ssm_prefill": lambda d=None: ssm_prefill(cfg, params, toks, d),
+        "ssm_decode": lambda d=None: ssm_decode(cfg, params, toks, 2, d)}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        # Asking for the CPU by name is the one way onto it.
+        call("cpu")
+    assert ssm_decode(cfg, params, toks, 2, "cpu").shape == (1, 6)
+
+
+def test_scan_never_falls_back_off_the_cpu():
+    """The sharded scan and the sp forward on tensors that are on neither
+    the card nor the CPU raise: nothing moves to the plain hop."""
+    mesh = make_mesh(devices=["meta"] * 4, axis="sp")
+    x = torch.empty((4, 2, 8, 3), device="meta")
+    with pytest.raises(ValueError, match="cuda .kernel. or cpu"):
+        sharded_linear_scan(x, x, mesh, dim=1)
+    cfg = SsmConfig(vocab=64, d_model=32, n_layers=1, d_state=8, d_ff=64)
+    params = init_ssm_params(cfg, torch.Generator(), "meta")
+    with pytest.raises(ValueError, match="cuda .kernel. or cpu"):
+        ssm_forward_sp(cfg, params, torch.zeros((1, 8), dtype=torch.long),
+                       mesh, device="meta")
 
 
 def test_driver_entry_points_raise_without_cuda(monkeypatch):
