@@ -105,6 +105,14 @@ port's paths and checks what comes out:
   tokens greedy under a teacher-forced forward with a zeroed-state
   control, the sp forward against one device in float32 and bf16 with a
   carry-dropped control, ms per token and per forward;
+* the state-space LM trained: ten bf16 AdamW steps through
+  ``make_ssm_train_step`` at the same width, batch 8, seq 1024 (no
+  kernel), and three over 8 dp ranks on the card (the all-reduce kernel on
+  the (8, 92,321,792) float32 gradient bucket, once a step): the kernel at
+  that bucket bitwise its plain version and timed, dp against one device
+  in float32 and bf16 with a faulty control (rank 0's gradient alone), ms
+  a step, tokens/s and MFU, a profiled step of each, and the trained tree
+  decoded;
 
 then times the paths and the kernels, and prints:
 
@@ -117,8 +125,9 @@ then times the paths and the kernels, and prints:
   the halo phase, ``moe_launches``, on the Mixture-of-Experts phase, and
   ``speculative_launches``, on the speculative phase,
   ``lora_launches``, on the LoRA phase, ``vit_launches``, on the ViT
-  phase, and ``ssm_launches``, on the state-space phase, checked against
-  the count worked out from the code),
+  phase, ``ssm_launches``, on the state-space phase, and
+  ``ssm_train_launches``, on the state-space training phase, checked
+  against the count worked out from the code),
   its largest error against the plain version, and
   its time beside its bound, the plain version's time and one PyTorch
   library call's time;
@@ -475,6 +484,34 @@ SSM_FP32_TIE = 2e-3
 # control's (float32: 9.8e-6 against the control's 4.78).
 SSM_BF16_STEP_REL = 2e-2
 SSM_BF16_SP_REL = 2e-2
+
+# The state-space LM trained (phase 18) at SSM's width and measure_ssm's
+# batch and seq (bench.py:476-557): tokens (BATCH, SSM_SEQ + 1) from numpy's
+# default_rng(0), as measure_ssm draws them, AdamW at make_ssm_train_step's
+# 1e-3, bf16 compute over float32 masters (the recurrence in complex64);
+# the dp step over SSM_DP ranks on the card, the same batch, its
+# (8, 92,321,792) float32 gradient bucket summed by one kernel-6 launch.
+# Nothing cut.
+SSM_TRAIN_STEPS = 10
+SSM_DP = 8
+SSM_DP_STEPS = 3
+SSM_TIMED_STEPS = 2
+SSM_TRAIN_REPEATS = 3
+# dp 8 against one device over SSM_DP_STEPS steps from the same parameters:
+# the largest relative loss gap and the parameters' gap ||p_dp - p_one|| /
+# ||p_one - p_0||. The ranks' gradients are summed in the ring's order
+# where one device sums the batch in one mean, and each rank's products
+# run on 1024 tokens where one device's run on 8192, so the last bits
+# differ; AdamW's first update is about lr · sign(g), so a tiny gradient
+# element that rounds to the other sign moves 2 lr the other way, and the
+# parameters' gap carries that: the losses weigh more. Measured (NVIDIA
+# H100 80GB HBM3, 700.00 W): float32 3.3e-7 and 5.5e-5, bf16 2.1e-4 and
+# 0.054; the control (rank 0's gradient alone) 0.157 on the second loss
+# and 1.21 in both. Each limit sits 10-30 times over its sound gap and
+# 78-15700 times under the control's (the bf16 parameter limit 3.7 times
+# over and 6 times under).
+SSM_DP_LOSS_RTOL = {"float32": 1e-5, "bf16": 2e-3}
+SSM_DP_PARAM_REL = {"float32": 1e-3, "bf16": 0.2}
 
 N_REQUESTS = 3
 BATCH = 8
@@ -4634,6 +4671,265 @@ def ssm_slice(dev, card):
     return main_counts, err
 
 
+def ssm_flops_per_step(cfg, batch, seq):
+    """(model FLOPs of one SSM optimizer step, the float32 share), counted
+    from ``models/ssm.py`` as ``train.train_flops_per_step`` counts the
+    LM's: the forward's matrix products times 3 for forward and backward.
+    Per layer the drive (two float32 products ``(N, d) @ (d, h)``) and the
+    read-out (two ``(N, h) @ (h, d)``), 8 N d h together, and the MLP, 4 N
+    d f; then the head, 2 N d V; N = batch · seq tokens. The scan's
+    elementwise work is not counted."""
+    n = batch * seq
+    d, h, f, v = cfg.d_model, cfg.d_state, cfg.d_ff, cfg.vocab
+    fp32 = 8 * n * d * h * cfg.n_layers
+    total = fp32 + 4 * n * d * f * cfg.n_layers + 2 * n * d * v
+    return 3.0 * total, 3.0 * fp32
+
+
+def ssm_train_launches(dp_steps):
+    """{kernel: launches} of phase 18's main path, counted from the code
+    (``models/ssm.py``, ``make_ssm_train_step``): a one-device step launches
+    no kernel (the scan is plain PyTorch, as JAX's is XLA's), a dp step one
+    kernel-6 launch on its gradient bucket."""
+    counts = {name: 0 for name in ("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv", "flash_decode_attention",
+                                   "ring_allgather", "ring_allreduce",
+                                   "sendrecv")}
+    counts["ring_allreduce"] = dp_steps
+    return counts
+
+
+def ssm_train_slice(dev, card):
+    """Phase 18: the state-space LM (``models/ssm.py``) trained through
+    ``make_ssm_train_step`` at measure_ssm's width and batch (SSM, BATCH
+    × (SSM_SEQ + 1) tokens), bf16 over float32 masters, on one device and
+    over SSM_DP dp ranks on the card (kernel 6 on the gradient bucket).
+    Main path, counted alone: (b) SSM_TRAIN_STEPS steps on one device and
+    SSM_DP_STEPS dp steps, ``ssm_train_launches`` launches. Then, outside
+    the count: (a) kernel 6 at the SSM's bucket (SSM_DP, 92,321,792)
+    float32, bitwise its plain version and every rank's copy the same bits,
+    timed beside its bound, the plain version and ``torch.sum``; (c) dp
+    against one device over SSM_DP_STEPS steps from the same parameters, in
+    float32 and in bf16, within SSM_DP_LOSS_RTOL and SSM_DP_PARAM_REL, and
+    the control (each rank's copy of the bucket its own gradient, so the
+    step takes rank 0's gradient alone) outside them; (d) ms a step, one
+    device and dp interleaved, tokens/s, model TFLOP/s and MFU, a profiled
+    step of each; (e) ``ssm_decode`` of the trained tree. Returns
+    ({kernel: launches on the main path}, max |kernel 6 - plain|)."""
+    import importlib
+    import math
+
+    import numpy as np
+    import torch
+
+    from mpi_tpu_torch.models import (SsmConfig, init_ssm_params,
+                                      make_ssm_train_step, ssm_decode)
+    from mpi_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
+                                             flash_fwd)
+    from mpi_tpu_torch.ops.decode_attention import flash_decode_attention
+    from mpi_tpu_torch.ops.ring_collectives import (ring_allgather,
+                                                    ring_allreduce,
+                                                    ring_allreduce_plain)
+    from mpi_tpu_torch.parallel import make_mesh, sendrecv
+    from mpi_tpu_torch.parallel.zero import DpLayout, tree_leaves
+    from mpi_tpu_torch.train import peak_bf16_tflops
+
+    ssm_mod = importlib.import_module("mpi_tpu_torch.models.ssm")
+    wrappers = {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
+                "flash_bwd_dkv": flash_bwd_dkv,
+                "flash_decode_attention": flash_decode_attention,
+                "ring_allgather": ring_allgather,
+                "ring_allreduce": ring_allreduce, "sendrecv": sendrecv}
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on: the float32 checks need full float32 products")
+    cfgs = {"bf16": SsmConfig(**SSM, dtype=torch.bfloat16),
+            "float32": SsmConfig(**SSM)}
+    cfg = cfgs["bf16"]
+    params0 = init_ssm_params(cfg, torch.Generator().manual_seed(0))
+    p0 = tree_leaves(params0)
+    n_params = sum(x.numel() for x in p0)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (BATCH, SSM_SEQ + 1))).to(dev)
+    mesh = make_mesh(axis="dp", devices=[dev] * SSM_DP)
+    print(f"SSM training: {n_params} parameters (float32 masters), {SSM}, "
+          f"tokens ({BATCH}, {SSM_SEQ + 1}), AdamW at 1e-3, dp "
+          f"{SSM_DP} ranks on the card")
+
+    def run(c, m, steps, snapshot=None):
+        """``steps`` steps from params0: (step, state, losses, the leaves
+        after ``snapshot`` steps)."""
+        init_state, step = make_ssm_train_step(c, mesh=m)
+        state = init_state.from_params(clone_tree(params0))
+        losses, at = [], None
+        for i in range(steps):
+            losses.append(step(state, tokens)[1])
+            if i + 1 == snapshot:
+                at = [x.detach().clone() for x in
+                      tree_leaves(state["params"])]
+        check(state["step"] == steps, f"state['step'] {state['step']}, "
+                                      f"want {steps}")
+        return step, state, [float(x) for x in losses], at
+
+    # ---- (b) the main path, counted alone ----------------------------------
+    for w in wrappers.values():
+        w.launches = 0
+    step1, state1, losses, at3 = run(cfg, None, SSM_TRAIN_STEPS,
+                                     snapshot=SSM_DP_STEPS)
+    step_d, state_d, dp_losses, _ = run(cfg, mesh, SSM_DP_STEPS)
+    torch.cuda.synchronize()
+    main_counts = {name: w.launches for name, w in wrappers.items()}
+    want = ssm_train_launches(SSM_DP_STEPS)
+    check(main_counts == want,
+          f"SSM training launched {main_counts}, want {want} (counted from "
+          f"the code: no kernel a one-device step, one kernel-6 launch a dp "
+          f"step)")
+    print(f"(b) bf16 losses, one device: {losses}; dp {SSM_DP}: "
+          f"{dp_losses}; launches (main path: {SSM_TRAIN_STEPS} steps on "
+          f"one device, {SSM_DP_STEPS} dp steps): {main_counts}")
+    check(all(math.isfinite(x) for x in losses + dp_losses),
+          f"(b) a loss is not finite: {losses}, {dp_losses}")
+    check(losses[-1] < losses[0], f"(b) loss did not fall: {losses}")
+    check(all(x.dtype == torch.float32 and x.device.type == "cuda"
+              for x in tree_leaves(state1["params"])),
+          "(b) the masters left float32 or the card")
+
+    # ---- (a) kernel 6 at the SSM's bucket ----------------------------------
+    layout = DpLayout([[(x.shape, None) for x in p0]], SSM_DP)
+    m = layout.width
+    check(m == n_params, f"the bucket is padded: width {m}, {n_params} "
+                         f"parameters")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    bucket = torch.randn(SSM_DP, m, generator=gen, device=dev)
+    got = ring_allreduce(bucket, mesh)
+    ref = ring_allreduce_plain(bucket)
+    torch.cuda.synchronize()
+    check(bits_equal(got, ref), f"kernel 6 at the SSM bucket ({SSM_DP}, "
+                                f"{m}) differs from its plain version")
+    check(bits_equal(got, got[:1].expand_as(got)),
+          "kernel 6 at the SSM bucket: the ranks hold different results")
+    err = max_abs_diff(got, ref)
+    del got, ref
+    torch.cuda.empty_cache()
+    k_ms = kernel_ms(lambda c: ring_allreduce(c, mesh), [(bucket,)], 10)
+    p_ms = kernel_ms(ring_allreduce_plain, [(bucket,)], 3)
+    l_ms = kernel_ms(lambda c: torch.sum(c, 0), [(bucket,)], 10)
+    least = 2 * bucket.numel() * bucket.element_size()
+    b_ms, b_by = bound(least, (SSM_DP - 1) * m, bucket.dtype)
+    print(f"(a) kernel 6 at the SSM bucket ({SSM_DP}, {m}) float32, bitwise "
+          f"plain, every copy the same bits: {k_ms * 1e3!r} us against a "
+          f"{b_ms * 1e3!r} us bound ({b_by}; {least} bytes read once and "
+          f"written once), {least / k_ms / 1e9!r} TB/s, plain "
+          f"{p_ms * 1e3!r} us, torch.sum(contribs, 0) {l_ms * 1e3!r} us  "
+          f"[{card}]")
+    del bucket
+    torch.cuda.empty_cache()
+
+    # ---- (c) dp against one device, float32 and bf16, and the control -----
+    def leaves_of(state):
+        return [x.detach() for x in tree_leaves(state["params"])]
+
+    def control(c):
+        sound = ssm_mod.ring_allreduce
+        ssm_mod.ring_allreduce = (lambda contribs, ring, op="sum":
+                                  contribs * ring.size)
+        try:
+            _, state, ls, _ = run(c, mesh, SSM_DP_STEPS)
+        finally:
+            ssm_mod.ring_allreduce = sound
+        return ls, leaves_of(state)
+
+    gaps = {}
+    for label, c in cfgs.items():
+        if label == "bf16":
+            one_l, one_p = losses[:SSM_DP_STEPS], at3
+            dp_l, dp_p = dp_losses, leaves_of(state_d)
+        else:
+            _, state, one_l, _ = run(c, None, SSM_DP_STEPS)
+            one_p = leaves_of(state)
+            _, state, dp_l, _ = run(c, mesh, SSM_DP_STEPS)
+            dp_p = leaves_of(state)
+            del state
+        ctrl_l, ctrl_p = control(c)
+        gaps[label] = (max(loss_gaps(dp_l, one_l)), rel_gap(dp_p, one_p, p0),
+                       loss_gaps(ctrl_l, one_l), rel_gap(ctrl_p, one_p, p0))
+        print(f"(c) {label}, dp {SSM_DP} against one device over "
+              f"{SSM_DP_STEPS} steps: losses {dp_l} against {one_l}, "
+              f"largest relative gap {gaps[label][0]!r} (rtol "
+              f"{SSM_DP_LOSS_RTOL[label]}), parameter gap ||p - p_one|| / "
+              f"||p_one - p_0|| {gaps[label][1]!r} (limit "
+              f"{SSM_DP_PARAM_REL[label]}); control (rank 0's gradient "
+              f"alone): losses {ctrl_l}, gaps {gaps[label][2]}, parameter "
+              f"gap {gaps[label][3]!r}")
+        del one_p, dp_p, ctrl_p
+        torch.cuda.empty_cache()
+    for label, (lg, pg, clg, cpg) in gaps.items():
+        check(lg <= SSM_DP_LOSS_RTOL[label] and pg <= SSM_DP_PARAM_REL[label],
+              f"(c) {label} dp against one device: gaps {lg}, {pg}")
+        check(max(clg) > SSM_DP_LOSS_RTOL[label] and
+              cpg > SSM_DP_PARAM_REL[label],
+              f"(c) {label}: the control's gaps {clg}, {cpg} fall inside "
+              f"the limits")
+    del at3
+
+    # ---- (d) times: one device and dp, interleaved; a profiled step -------
+    times = {"one device": [], f"dp {SSM_DP}": []}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(SSM_TRAIN_REPEATS):
+        for label, fn, st in (("one device", step1, state1),
+                              (f"dp {SSM_DP}", step_d, state_d)):
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(SSM_TIMED_STEPS):
+                fn(st, tokens)
+            end.record()
+            torch.cuda.synchronize()
+            times[label].append(start.elapsed_time(end) / SSM_TIMED_STEPS)
+    flops, fp32 = ssm_flops_per_step(cfg, BATCH, SSM_SEQ)
+    peak = peak_bf16_tflops(torch.cuda.get_device_name(0))
+    floor_ms = ((flops - fp32) / PEAK_FLOPS["torch.bfloat16"] +
+                fp32 / PEAK_FLOPS["torch.float32"]) * 1e3
+    n_tok = BATCH * SSM_SEQ
+    for label, ts in times.items():
+        tflops = [flops / ms / 1e9 for ms in ts]
+        print(f"(d) {label}: {ts} ms per step (CUDA events, "
+              f"{SSM_TIMED_STEPS} steps a repeat, {SSM_TRAIN_REPEATS} "
+              f"interleaved repeats), {n_tok / max(ts) * 1e3!r}-"
+              f"{n_tok / min(ts) * 1e3!r} tokens/s, {min(tflops)!r}-"
+              f"{max(tflops)!r} model TFLOP/s, MFU "
+              f"{None if peak is None else max(tflops) / peak!r} against "
+              f"{peak} TFLOP/s dense bf16  [{card}]")
+    print(f"(d) {flops!r} model FLOP a step ({fp32!r} of it in the float32 "
+          f"drive and read-out products); at the peaks (bf16 "
+          f"{PEAK_FLOPS['torch.bfloat16']}, float32 "
+          f"{PEAK_FLOPS['torch.float32']}) the products alone take "
+          f"{floor_ms!r} ms")
+    profile_steps(lambda: step1(state1, tokens), 1, "SSM train step",
+                  min(times["one device"]), card)
+    profile_steps(lambda: step_d(state_d, tokens), 1,
+                  f"SSM dp {SSM_DP} train step", min(times[f"dp {SSM_DP}"]),
+                  card)
+    del state_d
+    torch.cuda.empty_cache()
+
+    # ---- (e) the trained tree served ---------------------------------------
+    prompt = tokens[:, :PROMPT_LEN]
+    out = ssm_decode(cfg, state1["params"], prompt, NEW_TOKENS)
+    torch.cuda.synchronize()
+    check(tuple(out.shape) == (BATCH, PROMPT_LEN + NEW_TOKENS) and
+          out.device.type == "cuda" and
+          torch.equal(out[:, :PROMPT_LEN], prompt) and
+          bool(((out >= 0) & (out < cfg.vocab)).all()),
+          f"(e) ssm_decode of the trained tree: tokens {tuple(out.shape)} "
+          f"on {out.device}, the prompt changed, or outside the vocab")
+    print(f"(e) ssm_decode of the trained tree: {BATCH} x {PROMPT_LEN} "
+          f"prompt + {NEW_TOKENS} tokens, in the vocab, the prompt kept; "
+          f"{int(out[:, PROMPT_LEN:].unique().numel())} distinct new tokens")
+    del state1, params0, p0
+    torch.cuda.empty_cache()
+    return main_counts, err
+
+
 def decode_times(dev, gen, card, cfg):
     """Kernel 4 at the flagship decode shape (n_valid 0, 128 and 255) and
     at a long cache of the same widths (t 8192, n_valid 8191): kernel,
@@ -4976,7 +5272,11 @@ def main() -> int:
     ssm_counts, ssm_err = ssm_slice(dev, card)
     torch.cuda.empty_cache()
 
-    # ---- 18. result -----------------------------------------------------
+    # ---- 18. the state-space LM trained: one device and dp ranks -------
+    ssm_train_counts, ssm_train_err = ssm_train_slice(dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- 19. result -----------------------------------------------------
     source = "mpi_tpu_torch/ops/csrc/flash_attention.cu"
     kernels = []
     for name, replaces, n in zip(
@@ -5009,7 +5309,10 @@ def main() -> int:
                                            dp_err.get(name, 0.0),
                                            tp_err.get(name, 0.0),
                                            max(halo_err, ssm_err)
-                                           if name == "sendrecv" else 0.0),
+                                           if name == "sendrecv" else 0.0,
+                                           ssm_train_err
+                                           if name == "ring_allreduce"
+                                           else 0.0),
                         **ring_rows[name]})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -5024,7 +5327,8 @@ def main() -> int:
                 "speculative_launches": spec_counts[row["name"]],
                 "lora_launches": lora_counts[row["name"]],
                 "vit_launches": vit_counts[row["name"]],
-                "ssm_launches": ssm_counts[row["name"]]}
+                "ssm_launches": ssm_counts[row["name"]],
+                "ssm_train_launches": ssm_train_counts[row["name"]]}
                for row in kernels]
     print(card)
     print(json.dumps({"kernels": kernels}))

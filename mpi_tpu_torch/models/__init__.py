@@ -10,7 +10,8 @@ speculative decoding (:mod:`.speculative`), LoRA fine-tuning
 (:mod:`.lora`), int8 weights, and loading the JAX package's tree; the
 encoder family, the Vision Transformer over the same blocks
 (:mod:`.vit`); and the state-space LM, served on one device and
-sequence-parallel over an ``sp`` axis (:mod:`.ssm`)."""
+sequence-parallel over an ``sp`` axis, and trained on one device and
+data-parallel over a ``dp`` axis (:mod:`.ssm`)."""
 
 from .convert import params_from_jax
 from .generate import decode_step, generate, prefill
@@ -22,9 +23,9 @@ from .pipeline_lm import (forward_pipelined, init_pipelined_params,
                           stack_block_params)
 from .quant import QTensor, dequantize, quantize, quantize_params
 from .speculative import generate_lookahead
-from .ssm import (SsmConfig, init_ssm_params, init_ssm_state, ssm_decode,
-                  ssm_forward, ssm_forward_sp, ssm_params_from_jax,
-                  ssm_prefill, ssm_step)
+from .ssm import (SsmConfig, init_ssm_params, init_ssm_state,
+                  make_ssm_train_step, ssm_decode, ssm_forward,
+                  ssm_forward_sp, ssm_params_from_jax, ssm_prefill, ssm_step)
 from .transformer import (TransformerConfig, forward, forward_with_aux,
                           full_params, init_params, loss_fn, make_mesh_nd,
                           make_optimizer, make_train_parts, make_train_step,
@@ -48,4 +49,5 @@ __all__ = ["TransformerConfig", "init_params", "forward", "forward_with_aux",
            "vit_loss_fn", "vit_param_specs", "make_vit_train_step",
            "vit_params_from_jax", "SsmConfig", "init_ssm_params",
            "ssm_forward", "ssm_forward_sp", "init_ssm_state", "ssm_step",
-           "ssm_prefill", "ssm_decode", "ssm_params_from_jax"]
+           "ssm_prefill", "ssm_decode", "make_ssm_train_step",
+           "ssm_params_from_jax"]

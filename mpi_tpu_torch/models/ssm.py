@@ -24,10 +24,17 @@ whole sequence, and only the recurrence runs as
 :func:`~mpi_tpu_torch.parallel.scan.sharded_linear_scan` over the stacked
 chunks, its carries hopped on kernel 7.
 
+:func:`make_ssm_train_step` trains it: the port's ``token_xent`` over the
+forward, one optimizer step of :func:`~.transformer.make_optimizer`'s rule
+on the float32 masters. Over a mesh's ``dp`` axis each rank takes its own
+rows of the batch, its gradient goes into its row of a ``(dp, width)``
+float32 bucket, and one kernel-6 launch sums the bucket over the ranks,
+which share the card (the JAX package shards the batch and GSPMD inserts
+the psum).
+
 Every entry point runs on ``device``, the CUDA device unless the caller
 names another, where the parameters must lie; with CUDA absent and no
-device given it raises. Training (``make_ssm_train_step``) is not ported
-here.
+device given it raises.
 """
 
 from __future__ import annotations
@@ -39,15 +46,18 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from ..ops.ring_collectives import ring_allreduce
 from ..parallel.mesh import RankMesh, shared_ring
 from ..parallel.scan import linear_scan, sharded_linear_scan
+from ..parallel.zero import (DpLayout, allreduce_grads, grad_bucket,
+                             tree_leaves)
 from ..utils.platform import resolve_device
 from .convert import _tensor
-from .transformer import _layernorm
+from .transformer import _layernorm, make_optimizer, token_xent, train_state
 
 __all__ = ["SsmConfig", "init_ssm_params", "ssm_forward", "ssm_forward_sp",
            "init_ssm_state", "ssm_step", "ssm_prefill", "ssm_decode",
-           "ssm_params_from_jax"]
+           "make_ssm_train_step", "ssm_params_from_jax"]
 
 Device = Optional[Union[str, torch.device]]
 State = List[torch.Tensor]
@@ -351,6 +361,99 @@ def ssm_decode(cfg: SsmConfig, params: Dict[str, Any], prompt: torch.Tensor,
         tok = torch.argmax(logits, dim=-1).to(prompt.dtype)
         toks.append(tok)
     return torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
+
+
+# -- training -------------------------------------------------------------
+
+def _loss(cfg: SsmConfig, params: Dict[str, Any], tokens: torch.Tensor
+          ) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``tokens`` (b, s + 1)."""
+    return token_xent(_forward_impl(cfg, params, tokens[:, :-1]),
+                      tokens[:, 1:])
+
+
+def _dp_loss(cfg: SsmConfig, params: Dict[str, Any], tokens: torch.Tensor,
+             ring: RankMesh) -> torch.Tensor:
+    """The data-parallel step's gradients into the leaves' ``.grad``, and
+    its loss: rank r's rows are ``tokens.chunk(n)[r]``; its gradient goes
+    into row r of the bucket of a :class:`DpLayout` with every leaf
+    replicated, and :func:`allreduce_grads` sums it on kernel 6 as the
+    Transformer's plain dp step does. The loss is the mean of the ranks'
+    losses, the batch's mean (the ranks hold equally many tokens)."""
+    n = ring.size
+    if tokens.shape[0] % n:
+        raise ValueError(f"mpi_tpu_torch: batch {tokens.shape[0]} not "
+                         f"divisible by dp={n}")
+    leaves = tree_leaves(params)
+    layout = DpLayout([[(x.shape, None) for x in leaves]], n)
+    bucket = grad_bucket(layout, tokens.device)
+    loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for r, rows in enumerate(tokens.chunk(n)):
+        rank_loss = _loss(cfg, params, rows)
+        layout.pack(bucket[r], torch.autograd.grad(rank_loss, leaves))
+        loss += rank_loss.detach()
+    allreduce_grads(bucket, layout, leaves, ring, ring_allreduce)
+    return loss / n
+
+
+def make_ssm_train_step(cfg: SsmConfig, learning_rate: float = 1e-3,
+                        optimizer: str = "adamw",
+                        mesh: Optional[RankMesh] = None):
+    """``(init_state, step)`` of next-token training.
+
+    ``init_state(generator, device=None)`` draws fresh parameters
+    (:func:`init_ssm_params`) and returns ``{"params", "opt", "step"}``:
+    the optimizer :func:`~.transformer.make_optimizer`'s rule (``"adamw"``,
+    ``"adafactor"`` or ``"sgd"``; another name raises ``ValueError``) over
+    every leaf, ``"step"`` the count of updates.
+    ``init_state.from_params(params)`` builds the state around a given tree
+    (from :func:`ssm_params_from_jax`, say). ``step(state, tokens) ->
+    (state, loss)`` takes ``(b, s + 1)`` tokens, the inputs ``tokens[:,
+    :-1]`` and the targets ``tokens[:, 1:]``, runs one optimizer step and
+    updates the state in place (the JAX step returns a new state); ``loss``
+    is a 0-dim float32 tensor on the device.
+
+    ``mesh`` is a :class:`RankMesh` with a ``dp`` axis (``ValueError``
+    without one), whose ranks share one device; its other axes carry
+    nothing, as in the JAX package. With ``dp`` above 1 the batch splits
+    over the dp ranks and their gradients are summed on kernel 6 (see the
+    module note); the batch must divide by dp (``ValueError``)."""
+    if mesh is not None:
+        if not isinstance(mesh, RankMesh):
+            raise TypeError(f"mpi_tpu_torch: a mesh must be a RankMesh; got "
+                            f"{type(mesh).__name__}")
+        if "dp" not in mesh.axis_names:
+            raise ValueError(f"mpi_tpu_torch: make_ssm_train_step shards "
+                             f"the batch over a 'dp' axis; mesh "
+                             f"{mesh.axis_names} has none")
+        if mesh.shape["dp"] == 1:
+            mesh = None
+    build = make_optimizer(optimizer, learning_rate)
+
+    def from_params(params: Dict[str, Any]) -> Dict[str, Any]:
+        return {**train_state(params, build), "step": 0}
+
+    def init_state(generator: torch.Generator, device: Device = None
+                   ) -> Dict[str, Any]:
+        return from_params(init_ssm_params(cfg, generator, device))
+
+    def step(state: Dict[str, Any], tokens: torch.Tensor
+             ) -> Tuple[Dict[str, Any], torch.Tensor]:
+        params, opt = state["params"], state["opt"]
+        tokens = tokens.to(_device_of(params))
+        opt.zero_grad(set_to_none=True)
+        if mesh is None:
+            loss = _loss(cfg, params, tokens)
+            loss.backward()
+        else:
+            ring = shared_ring(mesh, "dp", tokens, "make_ssm_train_step")
+            loss = _dp_loss(cfg, params, tokens, ring)
+        opt.step()
+        state["step"] += 1
+        return state, loss.detach()
+
+    init_state.from_params = from_params
+    return init_state, step
 
 
 def ssm_params_from_jax(tree: Any, cfg: SsmConfig, device: Device = None

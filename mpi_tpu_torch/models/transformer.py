@@ -81,9 +81,10 @@ from ..ops.ring_collectives import ring_allgather, ring_allreduce
 from ..parallel.collectives import ring_reduce_scatter
 from ..parallel.mesh import RankMesh, axis_ring, axis_slice, mesh_devices
 from ..parallel.ring_attention import ring_attention_sharded
-from ..parallel.zero import (DpLayout, fsdp_specs, pieces_view, spec_dim,
-                             spec_leaves, tree_leaves, tree_with_leaves,
-                             unshard, zero1_specs)
+from ..parallel.zero import (DpLayout, allreduce_grads, fsdp_specs,
+                             grad_bucket, pieces_view, spec_dim, spec_leaves,
+                             tree_leaves, tree_with_leaves, unshard,
+                             zero1_specs)
 from ..parallel.tensor_parallel import (tp_copy, tp_reduce, tp_ring,
                                         tp_size, vocab_parallel_embed,
                                         vocab_parallel_xent)
@@ -797,9 +798,7 @@ class _DataParallel:
                        if leaf.dim is None]
         else:
             inputs = leaves
-        bucket = torch.empty((dp, layout.width), dtype=torch.float32,
-                             device=dev)
-        bucket[:, dp * layout.chunk + layout.rest:].zero_()
+        bucket = grad_bucket(layout, dev)
         loss = torch.zeros((), dtype=torch.float32, device=dev)
         # JAX's microbatches: consecutive rows of the batch, each split
         # over dp; rank r's gradient from its own rows alone.
@@ -864,11 +863,8 @@ class _DataParallel:
         """Reduce the bucket over the dp ring (kernel 6) and update."""
         layout, opt, dp = state["layout"], state["opt"], self.dp
         if self.mode == "dp":
-            # Every rank's copy holds the same sum; the replicated
-            # parameters take one update, from rank 0's.
-            total = ring_allreduce(bucket, self.ring)[0].div_(dp)
-            for i, x in enumerate(leaves):
-                x.grad = layout.unpack(total, i)
+            allreduce_grads(bucket, layout, leaves, self.ring,
+                            ring_allreduce)
             opt.step()
             return
         nc = dp * layout.chunk

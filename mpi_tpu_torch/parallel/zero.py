@@ -37,7 +37,7 @@ import torch
 
 __all__ = ["Spec", "tree_leaves", "tree_with_leaves", "spec_leaves",
            "zero1_specs", "fsdp_specs", "spec_dim", "pieces_view", "unshard",
-           "LeafPlace", "DpLayout"]
+           "LeafPlace", "DpLayout", "grad_bucket", "allreduce_grads"]
 
 Spec = Tuple[Any, ...]
 
@@ -263,3 +263,27 @@ class DpLayout:
         with ``sharded``)."""
         return [i for i, leaf in enumerate(self.leaves) if leaf.group == g
                 and not (sharded and leaf.dim is None)]
+
+
+def grad_bucket(layout: DpLayout, device: Any) -> torch.Tensor:
+    """An empty ``(n, width)`` float32 gradient bucket of ``layout`` on
+    ``device``, row r for rank r's packed gradients, with the padding after
+    the replicated leaves zeroed."""
+    n = layout.n
+    bucket = torch.empty((n, layout.width), dtype=torch.float32,
+                         device=device)
+    bucket[:, n * layout.chunk + layout.rest:].zero_()
+    return bucket
+
+
+def allreduce_grads(bucket: torch.Tensor, layout: DpLayout,
+                    leaves: Sequence[torch.Tensor], ring: Any,
+                    allreduce: Any) -> None:
+    """Plain dp's reduction: one ``allreduce`` launch (kernel 6's wrapper,
+    :func:`~mpi_tpu_torch.ops.ring_collectives.ring_allreduce`, as the
+    caller's module binds it) sums ``bucket`` over ``ring``. Every rank's
+    copy holds the same sum, so the replicated parameters take one update:
+    rank 0's copy, over n, becomes the ``.grad`` of each of ``leaves``."""
+    total = allreduce(bucket, ring)[0].div_(layout.n)
+    for i, x in enumerate(leaves):
+        x.grad = layout.unpack(total, i)

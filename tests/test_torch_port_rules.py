@@ -206,6 +206,39 @@ def test_ssm_entry_points_raise_without_cuda(monkeypatch):
     assert ssm_decode(cfg, params, toks, 2, "cpu").shape == (1, 6)
 
 
+def test_ssm_training_raises_without_cuda(monkeypatch):
+    """The state-space LM's training state, on a dp mesh too, and the twin
+    of ``examples/ssm.py``."""
+    from mpi_tpu_torch.examples import ssm as ssm_example
+    from mpi_tpu_torch.models import make_ssm_train_step
+
+    cfg = SsmConfig(vocab=64, d_model=32, n_layers=1, d_state=8, d_ff=64)
+    mesh = make_mesh(2, axis="dp", devices=["cpu"] * 2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for m in (None, mesh):
+        init_state, step = make_ssm_train_step(cfg, mesh=m)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_state(torch.Generator().manual_seed(0))
+        # Asking for the CPU by name is the one way onto it.
+        state = init_state(torch.Generator().manual_seed(0), device="cpu")
+        _, loss = step(state, torch.zeros((2, 5), dtype=torch.long))
+        assert loss.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ssm_example.main(["--steps", "1"])
+
+
+def test_importing_the_ssm_training_loads_no_jax():
+    code = ("import sys, mpi_tpu_torch.examples.ssm\n"
+            "from mpi_tpu_torch.models import make_ssm_train_step\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'mpi_tpu'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_scan_never_falls_back_off_the_cpu():
     """The sharded scan and the sp forward on tensors that are on neither
     the card nor the CPU raise: nothing moves to the plain hop."""

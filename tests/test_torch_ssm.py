@@ -6,7 +6,8 @@ d_state 16, d_ff 64) and holds the port to JAX: JAX's parameters go over
 through ``ssm_params_from_jax``, then the same numpy tokens go through
 both packages' ``ssm_forward``, ``ssm_forward_sp`` (JAX's under
 ``shard_map`` on ``make_mesh(n, axis="sp")``), ``ssm_step``,
-``ssm_prefill`` and ``ssm_decode``. Training is not ported yet.
+``ssm_prefill`` and ``ssm_decode``. Training is held in
+``test_torch_ssm_train.py``.
 
 Tolerances. Port against JAX, float32: atol = rtol = 3e-5, the complex
 scan's tolerance of ``tests/test_ssm.py`` (the logits come through two
