@@ -63,9 +63,13 @@ port's paths and checks what comes out:
   one device (the flash kernels), one float32 step with flash against
   dense attention (the routing decisions that differ counted), and three
   steps over ``("dp", "ep")`` meshes of (1, 8) and (2, 4) ranks (the
-  experts' partial outputs summed on the all-reduce kernel), held against
-  the single-device step and against a faulty control, every copy the
-  kernel writes bitwise the same;
+  experts' partial outputs summed on the all-reduce kernel), over
+  ``("dp", "ep", "tp")`` meshes of (1, 4, 2) and (2, 2, 2) ranks (each
+  expert's d_ff split over tp, the ep × tp partials summed in one launch),
+  and under ZeRO-1 and FSDP on (4, 2) and (2, 2, 2) (the all-gather kernel
+  too), held against the single-device step and against faulty controls,
+  every copy the kernel writes bitwise the same, ZeRO-1 and FSDP bitwise
+  plain dp's;
 * speculative decoding: the flagship through ``generate_lookahead``
   (prompt lookup, 6 drafted tokens a verify forward, a 3-token key) on a
   repetitive and a random prompt at batch 8 and 1, which launches no
@@ -319,6 +323,14 @@ MOE_TOP_K = 2
 MOE_CAPACITY = 1.25
 MOE_EP_MESHES = ((1, 8), (2, 4))
 MOE_EP_STEPS = 3
+# (d): each expert's d_ff over tp beside ep, ("dp", "ep", "tp") meshes;
+# (e): ZeRO-1 and FSDP with experts, (mesh, mode) over ("dp", "ep"[, "tp"]):
+# (4, 2) is the JAX package's own fsdp mesh for the MoE
+# (tests/test_models.py:479-494), where every leaf of the flagship has a
+# dimension divisible by 4, so zero1 and fsdp must give plain dp's bits.
+MOE_TP_MESHES = ((1, 4, 2), (2, 2, 2))
+MOE_ZERO_RUNS = (((4, 2), "dp"), ((4, 2), "zero1"), ((4, 2), "fsdp"),
+                 ((2, 2, 2), "fsdp"))
 # ep against one device: the loss gap relative to one device's loss, and
 # the parameters' gap ||p_ep - p_one|| / ||p_one - p_0|| as in
 # DP_PARAM_REL. Each ep rank's experts' output is rounded to bf16 before
@@ -331,9 +343,21 @@ MOE_EP_STEPS = 3
 # faulty control (the experts' partial outputs reduced to rank 0's alone)
 # missed by 1.7e-3, 1.2e-2, 3.5e-2 in the loss and 1.22 in the
 # parameters. Each tolerance sits about halfway between on a log scale
-# (EP_LOSS_RTOL 2.1 times the largest sound gap and 1.7 times under the
-# control's least; EP_PARAM_REL 2.0 times over and 2.0 times under), and
-# the phase checks that the control still falls outside both.
+# (EP_LOSS_RTOL 2.1 times the largest sound gap of (c) and 1.7 times under
+# the control's least; EP_PARAM_REL 2.0 times over and 2.0 times under),
+# and the phase checks that the control still falls outside both. (d) and
+# (e) are held to the same two limits, each with a faulty control of its
+# own (tp coordinate 0's partials alone, 1.89e-3 to 6.4e-3 and 1.149;
+# rank 0's gradient alone in the reduce-scatter, 7.0e-3 and 5.0e-2 after
+# the first loss, 1.130) that must fall outside them. Their sound gaps
+# (same card): the first loss, from the same parameters, 3.0e-5 to 5.3e-5
+# with 1335-2659 of 131,072 routing choices flipped (twice as many where
+# tp splits each expert's output into two bf16 partials; (4, 2)'s 1337 as
+# (c)'s); the third 1.1e-4 to 9.8e-4 and the parameters 0.292 to 0.355,
+# the divergence of two sign-like AdamW updates, in no order of dp or
+# flips ((2, 2, 2), the most flips, 1.1e-4; (1, 4, 2), dp 1, 8.5e-4; (4,
+# 2) 9.8e-4). EP_LOSS_RTOL sits 1.02 times over that (4, 2) gap and 1.9
+# times under (d)'s control; EP_PARAM_REL 1.7 times over and 1.9 under.
 EP_LOSS_RTOL = 1e-3
 EP_PARAM_REL = 6e-1
 # One float32 step of the MoE flagship, flash against dense attention:
@@ -2950,23 +2974,46 @@ def moe_config(base, **kw):
                                capacity_factor=MOE_CAPACITY, **kw)
 
 
-def moe_launches(layers, requests, new_tokens, steps, ep_steps, meshes):
-    """Launches of kernels 1-4 and 6 on phase 13's main path, counted from
-    the code (``models/moe.py``, ``models/transformer.py``,
-    ``models/generate.py``): (a) each request's decode steps launch kernel
-    4 once a layer (the first new token comes from the prefill, on the
-    dense cached path); (b) and (c) each step's each dp rank launches
-    kernels 1-3 once a layer; under ep each dp rank launches kernel 6
-    twice a layer (the experts' partial outputs forward, the gradient to
-    their input backward), and a dp axis above 1 launches it once more
-    for the fractions of first choices and once for the gradient bucket.
-    ``meshes`` are the (dp, ep) shapes (c) runs, ``ep_steps`` steps
-    each."""
-    k123 = layers * (steps + ep_steps * sum(dp for dp, _ in meshes))
-    return {"flash_fwd": k123, "flash_bwd_dq": k123, "flash_bwd_dkv": k123,
+def moe_step_launches(layers, dp=1, ep=1, tp=1, mode="dp", rest=0):
+    """Launches of kernels 1, 2, 3, 6 and 5 in one MoE training step over a
+    (dp, ep, tp) mesh, counted from the code (``models/moe.py``,
+    ``models/transformer.py``, ``parallel/tensor_parallel.py``): each dp
+    rank launches kernels 1-3 once a layer; where ep·tp is above 1, kernel
+    6 twice a layer over the experts' ep × tp ring (their partials summed
+    forward, the gradient to their input backward); where tp is above 1,
+    twice a layer over the tp ring for the attention (the reduce after wo,
+    the copy's backward before q/k/v) and four times once (the embedding's
+    reduce, the logits' copy backward, the loss's row max and its sums:
+    :func:`tp_launches` less the dense FFN's); a dp axis above 1 adds the
+    fractions of first
+    choices and the gradient bucket's reduction: plain dp one all-reduce,
+    zero1 and fsdp one reduce-scatter and one all-reduce more where
+    ``rest`` values are replicated; zero1 gathers the parameters in one
+    kernel-5 launch, fsdp each rank's top group and each of its blocks.
+    ``tests/test_torch_moe_kernels.py`` holds its card steps to this count
+    too."""
+    k6 = dp * (2 * layers * (ep * tp > 1) + (tp > 1) * (2 * layers + 4))
+    k5 = 0
+    if dp > 1:
+        k6 += 1 + (1 if mode == "dp" else 1 + bool(rest))
+        k5 = {"zero1": 1, "fsdp": dp * (1 + layers)}.get(mode, 0)
+    return [dp * layers] * 3 + [k6, k5]
+
+
+def moe_launches(layers, requests, new_tokens, steps, ep_steps, runs):
+    """Launches of kernels 1-6 on phase 13's main path, counted from the
+    code (``models/generate.py`` and :func:`moe_step_launches`): (a) each
+    request's decode steps launch kernel 4 once a layer (the first new
+    token comes from the prefill, on the dense cached path); (b) each
+    single-device step kernels 1-3 once a layer; (c)-(e) ``ep_steps``
+    steps of each mesh run, ``runs`` holding each run's launches a step
+    (:func:`moe_step_launches`)."""
+    k = [steps * layers] * 3 + [0, 0]
+    for per_step in runs:
+        k = [a + ep_steps * b for a, b in zip(k, per_step)]
+    return {"flash_fwd": k[0], "flash_bwd_dq": k[1], "flash_bwd_dkv": k[2],
             "flash_decode_attention": requests * layers * (new_tokens - 1),
-            "ring_allreduce": ep_steps * sum(dp * 2 * layers + 2 * (dp > 1)
-                                             for dp, _ in meshes)}
+            "ring_allreduce": k[3], "ring_allgather": k[4]}
 
 
 class RecordedRoutes:
@@ -3007,53 +3054,64 @@ class RecordedRoutes:
 def moe_slice(dev, card, dense_ms):
     """Phase 13: the Mixture-of-Experts flagship (the flagship with
     MOE_EXPERTS experts, top-MOE_TOP_K routing, capacity factor
-    MOE_CAPACITY) served, trained on one device and trained
-    expert-parallel on the card. Main path, counted alone: (a) N_REQUESTS
-    requests of BATCH x PROMPT_LEN prompts + NEW_TOKENS through
-    ``generate`` (bf16, kernel 4 for each decode step); (b) TRAIN_STEPS
-    AdamW steps at full width and depth (bf16 over float32 masters,
-    flash attention, batch 8, seq 1024), the first MOE_EP_STEPS of which
-    are (c)'s single-device reference; (c) MOE_EP_STEPS steps over
-    ``("dp", "ep")`` meshes of MOE_EP_MESHES ranks on the card from (b)'s
-    seeded state and batch, every copy kernel 6 writes checked to hold the
-    same bits. Then, outside the count: (a)'s teacher-forced float32
-    logits, flash-decode kernel against dense decode, with the routing
-    decisions that differ counted; int8 weights' greedy agreement with
-    bf16; ms per generated token; one float32 training step with flash
-    against dense attention (the loss within MOE_F32_LOSS_RTOL, the
-    routing decisions that differ counted); two faulty controls of (c):
-    the experts' partial outputs reduced to rank 0's alone on (1, 8), which
-    must miss (c)'s tolerances, and each dp rank's own aux penalty on (2,
-    4), measured; kernel 6 against its plain version at the ep shapes
-    (bitwise) and its time; (b)'s and (c)'s ms per step beside the dense
-    flagship's ``dense_ms`` (phase 4), and a profile of one (1, 8) step.
-    Returns {kernel: launches on the main path}."""
+    MOE_CAPACITY) served, trained on one device and trained over rank
+    meshes on the card. Main path, counted alone: (a) N_REQUESTS requests
+    of BATCH x PROMPT_LEN prompts + NEW_TOKENS through ``generate`` (bf16,
+    kernel 4 for each decode step); (b) TRAIN_STEPS AdamW steps at full
+    width and depth (bf16 over float32 masters, flash attention, batch 8,
+    seq 1024), the first MOE_EP_STEPS of which are the reference of
+    (c)-(e); (c) MOE_EP_STEPS steps over ``("dp", "ep")`` meshes of
+    MOE_EP_MESHES ranks; (d) over ``("dp", "ep", "tp")`` meshes of
+    MOE_TP_MESHES ranks (each expert's d_ff over tp); (e) each of
+    MOE_ZERO_RUNS (plain dp, zero1 and fsdp with experts); each from (b)'s
+    seeded state and batch, every copy kernel 6 writes in its first step
+    checked to hold the same bits and its routing there counted against
+    (b)'s, the steps after the first timed (CUDA events, kernel 6
+    unchecked) with the run's peak memory, and one more step of each (c)
+    run profiled outside the count. Then, outside the count: four faulty
+    controls: the experts' partial outputs reduced to rank 0's alone on
+    (1, 8), which must miss the tolerances,
+    each dp rank's own aux penalty on (2, 4), measured, (d)'s partials of
+    tp coordinate 0 alone on (1, 4, 2) and (e)'s rank 0's gradient alone
+    in the fsdp reduce-scatter on (4, 2), both of which must miss; (a)'s
+    teacher-forced float32 logits, flash-decode kernel against dense
+    decode, with the routing decisions that differ counted; int8 weights'
+    greedy agreement with bf16; ms per generated token; one float32
+    training step with flash against dense attention (the loss within
+    MOE_F32_LOSS_RTOL, the routing decisions that differ counted); kernel
+    6 against its plain version at the (ep·tp, …) partial shapes
+    (bitwise) and its time; (b)'s ms per step beside the dense flagship's
+    ``dense_ms`` (phase 4). Returns {kernel: launches on the main path}."""
     import dataclasses
     import importlib
 
     import numpy as np
     import torch
 
-    from mpi_tpu_torch.models import (generate, init_params, loss_fn,
-                                      make_train_step, quantize_params)
+    from mpi_tpu_torch.models import (full_params, generate, init_params,
+                                      loss_fn, make_train_step,
+                                      quantize_params)
     from mpi_tpu_torch.models.generate import decode_step, prefill
     from mpi_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
                                              flash_fwd)
     from mpi_tpu_torch.ops.decode_attention import flash_decode_attention
-    from mpi_tpu_torch.ops.ring_collectives import (ring_allreduce,
+    from mpi_tpu_torch.ops.ring_collectives import (ring_allgather,
+                                                    ring_allreduce,
                                                     ring_allreduce_plain)
     from mpi_tpu_torch.parallel import RankMesh
-    from mpi_tpu_torch.parallel.mesh import axis_ring
+    from mpi_tpu_torch.parallel.tensor_parallel import tp_ring
     from mpi_tpu_torch.parallel.zero import tree_leaves
     from mpi_tpu_torch.serve import flagship_config
     from mpi_tpu_torch.train import flagship_train_config
 
     tpm = importlib.import_module("mpi_tpu_torch.parallel.tensor_parallel")
     tfm = importlib.import_module("mpi_tpu_torch.models.transformer")
+    colm = importlib.import_module("mpi_tpu_torch.parallel.collectives")
     wrappers = {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
                 "flash_bwd_dkv": flash_bwd_dkv,
                 "flash_decode_attention": flash_decode_attention,
-                "ring_allreduce": ring_allreduce}
+                "ring_allreduce": ring_allreduce,
+                "ring_allgather": ring_allgather}
     names = list(wrappers)
 
     def counts():
@@ -3064,7 +3122,7 @@ def moe_slice(dev, card, dense_ms):
     layers = tcfg.n_layers
     steps = NEW_TOKENS - 1
 
-    # ---- the main path: (a), (b), (c), counted alone ----------------------
+    # ---- the main path: (a)-(e), counted alone ----------------------------
     hgen = torch.Generator().manual_seed(0)
     sparams = init_params(scfg, hgen)
     prompts = [torch.randint(0, scfg.vocab, (BATCH, PROMPT_LEN),
@@ -3073,38 +3131,97 @@ def moe_slice(dev, card, dense_ms):
         0, tcfg.vocab, (8, tcfg.max_seq))).to(dev)
     params0 = init_params(tcfg, torch.Generator().manual_seed(0), dev)
     p0 = [x.detach().clone() for x in tree_leaves(params0)]
-    copies = {"calls": 0, "differ": 0}
+    copies = {"check": False, "calls": 0, "differ": 0}
 
     def checked(contribs, ring, op="sum"):
-        """Kernel 6 as the ep and dp reductions call it; every rank's copy
-        of the result must hold copy 0's bits."""
+        """Kernel 6 as the ep, tp and dp reductions and the reduce-scatter
+        call it; while ``copies["check"]`` is set (a mesh run's first
+        step, untimed) every rank's copy of the result must hold copy 0's
+        bits."""
         out = ring_allreduce(contribs, ring, op)
-        bits = out.view({2: torch.int16, 4: torch.int32}[out.element_size()])
-        copies["calls"] += 1
-        copies["differ"] += int(not bool((bits == bits[:1]).all()))
+        if copies["check"]:
+            bits = out.view({2: torch.int16,
+                             4: torch.int32}[out.element_size()])
+            copies["calls"] += 1
+            copies["differ"] += int(not bool((bits == bits[:1]).all()))
         return out
 
-    def run(label, mesh, p, n, want=None):
-        """``n`` AdamW steps from ``p`` over ``mesh``: (step, state,
-        losses); each step's launches of kernels 1-3 and 6 must equal
-        ``want`` where given."""
-        init_state, step = make_train_step(tcfg, mesh=mesh)
-        state = init_state.from_params(p)
-        losses = []
-        for i in range(n):
-            before = counts()
-            state, loss = step(state, tokens)
-            got = [a - b for a, b in zip(counts(), before)]
-            got = got[:3] + got[4:]
-            check(want is None or got == want,
-                  f"{label} step {i}: kernels 1-3 and 6 launched {got} "
-                  f"times, want {want} (counted from the code)")
-            losses.append(float(loss))
-        check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
-        return step, state, losses
+    def step_launches(label, i, before, want):
+        got = [a - b for a, b in zip(counts(), before)]
+        got = got[:3] + got[4:]
+        check(want is None or got == want,
+              f"{label} step {i}: kernels 1-3, 6 and 5 launched {got} "
+              f"times, want {want} (counted from the code)")
 
-    def leaves(state):
-        return [x.detach() for x in tree_leaves(state["params"])]
+    def mesh_run(label, shape, mode="dp", count=True, profile=False):
+        """MOE_EP_STEPS AdamW steps from (b)'s seeded state over a
+        ``("dp", "ep"[, "tp"])`` mesh of ``shape`` in ``mode`` (plain dp,
+        zero1 or fsdp), the state dropped after. Step 0 runs with kernel
+        6's copies checked and its routing recorded; the steps after it
+        are timed (CUDA events and the host's clock) with nothing checked
+        between their launches. With ``count`` each step's launches of
+        kernels 1-3, 6 and 5 must equal moe_step_launches'; with
+        ``profile`` one more step is profiled, outside the main path's
+        count. Returns a dict: ``losses``, ``params`` (full), ``routes``
+        (step 0's), ``ms`` and ``host_ms`` a step, ``peak`` (bytes
+        allocated in the run), ``base`` (held before it), ``want``
+        (launches a step), ``rest`` (replicated values)."""
+        mesh = RankMesh([dev] * int(np.prod(shape)),
+                        ("dp", "ep", "tp")[:len(shape)], shape)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        init_state, step = make_train_step(
+            tcfg, mesh=mesh, **({} if mode == "dp" else {mode: True}))
+        state = init_state.from_params(clone_tree(params0))
+        rest = state["layout"].rest if "layout" in state else 0
+        want = moe_step_launches(layers, *shape, mode=mode, rest=rest)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        losses = []
+        for i in range(MOE_EP_STEPS):
+            before = counts()
+            if i == 0:
+                copies["check"] = True
+                try:
+                    with RecordedRoutes() as rec:
+                        state, loss = step(state, tokens)
+                finally:
+                    copies["check"] = False
+                torch.cuda.synchronize()
+                t0.record()
+                host = time.perf_counter()
+            else:
+                state, loss = step(state, tokens)
+            step_launches(label, i, before, want if count else None)
+            losses.append(loss)
+        t1.record()
+        host = (time.perf_counter() - host) * 1e3 / (MOE_EP_STEPS - 1)
+        torch.cuda.synchronize()
+        ms = t0.elapsed_time(t1) / (MOE_EP_STEPS - 1)
+        peak = torch.cuda.max_memory_allocated(dev)
+        losses = [float(x) for x in losses]
+        check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+        params = [x.detach().clone() for x in tree_leaves(full_params(state))]
+        if profile:
+            saved = counts()
+            prof = profile_steps(lambda: step(state, tokens), 1, label, ms,
+                                 card)
+            for w, n in zip(wrappers.values(), saved):
+                w.launches = n  # the profiled step is outside the count
+            if prof is not None:
+                g = prof["groups"]
+                print(f"{label}: kernel 6 "
+                      f"{g.get('all-reduce kernel 6', (0, 0))}, kernel 5 "
+                      f"{g.get('all-gather kernel 5', (0, 0))} (ms, "
+                      f"launches) a step; device busy share "
+                      f"{prof['busy']!r}; {prof['launches']!r} launches a "
+                      f"step  [{card}]")
+        del state, step, init_state
+        torch.cuda.empty_cache()
+        return {"losses": losses, "params": params, "routes": rec.seen,
+                "ms": ms, "host_ms": host, "peak": peak, "base": base,
+                "want": want, "rest": rest}
 
     for w in wrappers.values():
         w.launches = 0
@@ -3122,75 +3239,139 @@ def moe_slice(dev, card, dense_ms):
               f"vocab or of the wrong shape")
         outs.append(toks)
 
-    one_k = [layers] * 3 + [0]
-    bstep, bstate, blosses = run("(b) one device", None, clone_tree(params0),
-                                 MOE_EP_STEPS, one_k)
-    one_leaves = [x.clone() for x in leaves(bstate)]
+    # (b): the first MOE_EP_STEPS steps are (c)-(e)'s reference (losses,
+    # parameters, step 0's routing); timed after one more warm-up step.
+    init_state, bstep = make_train_step(tcfg)
+    bstate = init_state.from_params(clone_tree(params0))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    for i in range(TRAIN_STEPS - MOE_EP_STEPS):
-        if i == 1:
-            start.record()  # after one more warm-up step
-        bstate, loss = bstep(bstate, tokens)
+    blosses = []
+    for i in range(TRAIN_STEPS):
+        if i == MOE_EP_STEPS + 1:
+            start.record()
+        before = counts()
+        if i == 0:
+            with RecordedRoutes() as one_routes:
+                bstate, loss = bstep(bstate, tokens)
+        else:
+            bstate, loss = bstep(bstate, tokens)
+        step_launches("(b) one device", i, before, moe_step_launches(layers))
         blosses.append(loss)
+        if i == MOE_EP_STEPS - 1:
+            one_leaves = [x.detach().clone()
+                          for x in tree_leaves(bstate["params"])]
     end.record()
     torch.cuda.synchronize()
     one_ms = start.elapsed_time(end) / (TRAIN_STEPS - MOE_EP_STEPS - 1)
     blosses = [float(x) for x in blosses]
     check(all(np.isfinite(blosses)) and blosses[-1] < blosses[0],
           f"(b) MoE losses not finite or not falling: {blosses}")
-    del bstate, bstep
+    one = (blosses[:MOE_EP_STEPS], one_leaves)
+    del bstate, bstep, init_state
     torch.cuda.empty_cache()
 
-    ep_runs = {}
+    def against_one(out):
+        """(relative loss gaps, parameter gap) of a run to (b)."""
+        return (loss_gaps(out["losses"], one[0]),
+                rel_gap(out["params"], one[1], p0))
+
+    def route_flips(seen):
+        """(choices whose expert differs, choices whose slot verdict
+        differs, choices) of a run's step-0 routing against (b)'s, from
+        the same parameters: ``seen`` holds each dp rank's layers in
+        turn, each routing its rank's rows of the batch."""
+        ref = one_routes.seen
+        dp = len(seen) // len(ref)
+        check(len(seen) == dp * len(ref),
+              f"{len(seen)} routings against one device's {len(ref)}")
+        idx = kept = 0
+        for layer, (i1, k1) in enumerate(ref):
+            ranks = seen[layer::len(ref)]
+            idx += int((torch.cat([i for i, _ in ranks]) != i1).sum())
+            kept += int((torch.cat([k for _, k in ranks]) != k1).sum())
+        return idx, kept, sum(i.numel() for i, _ in ref)
+
+    # ---- (c)-(e) over rank meshes, every kernel-6 copy checked ------------
+    runs, mesh_wants = {}, []
     tpm.ring_allreduce = tfm.ring_allreduce = checked
+    colm._ring_allreduce = checked
     try:
-        for dp, ep in MOE_EP_MESHES:
-            mesh = RankMesh([dev] * (dp * ep), ("dp", "ep"), (dp, ep))
-            k6 = dp * 2 * layers + 2 * (dp > 1)
-            ep_runs[dp, ep] = run(f"(c) ({dp}, {ep})", mesh,
-                                  clone_tree(params0), MOE_EP_STEPS,
-                                  [dp * layers] * 3 + [k6])
+        plain = None
+        for label, shape, mode in (
+                *((f"(c) {s}", s, "dp") for s in MOE_EP_MESHES),
+                *((f"(d) {s}", s, "dp") for s in MOE_TP_MESHES),
+                *((f"(e) {mode} {s}", s, mode) for s, mode in
+                  MOE_ZERO_RUNS)):
+            out = mesh_run(label, shape, mode,
+                           profile=label.startswith("(c)"))
+            mesh_wants.append(out["want"])
+            if shape == (4, 2):
+                check(out["rest"] == 0,
+                      f"{label}: {out['rest']} replicated values: every "
+                      f"leaf of the MoE flagship should have a dimension "
+                      f"divisible by 4")
+                if mode == "dp":
+                    plain = out
+                else:
+                    check(out["losses"] == plain["losses"] and all(
+                        bits_equal(a, b)
+                        for a, b in zip(out["params"], plain["params"])),
+                        f"{label}: losses {out['losses']} or parameters "
+                        f"differ from plain dp's {plain['losses']} in "
+                        f"their bits")
+            out["gaps"] = against_one(out)
+            out["flips"] = route_flips(out.pop("routes"))
+            # Kept: (c) (2, 4)'s for the per-rank aux control, plain dp's
+            # on (4, 2) until zero1 and fsdp are held to its bits.
+            if label != "(c) (2, 4)" and out is not plain:
+                del out["params"]
+            runs[label] = out
+            del out
+        if plain is not None:
+            del plain["params"]
+        del plain
+        torch.cuda.empty_cache()
     finally:
         tpm.ring_allreduce = tfm.ring_allreduce = ring_allreduce
+        colm._ring_allreduce = ring_allreduce
     main_counts = dict(zip(names, counts()))
     want_counts = moe_launches(layers, N_REQUESTS, NEW_TOKENS, TRAIN_STEPS,
-                               MOE_EP_STEPS, MOE_EP_MESHES)
+                               MOE_EP_STEPS, mesh_wants)
     check(main_counts == want_counts,
           f"MoE phase launches {main_counts}, want {want_counts} (counted "
           f"from the code)")
-    n_copies = MOE_EP_STEPS * sum(dp * 2 * layers + 2 * (dp > 1)
-                                  for dp, _ in MOE_EP_MESHES)
+    n_copies = sum(w[3] for w in mesh_wants)
     check(copies["calls"] == n_copies and copies["differ"] == 0,
-          f"(c): {copies['differ']} of {copies['calls']} kernel-6 results "
-          f"hold copies that differ from copy 0 (want {n_copies} results, "
-          f"every copy the same bits)")
+          f"(c)-(e): {copies['differ']} of {copies['calls']} kernel-6 "
+          f"results of the runs' first steps hold copies that differ from "
+          f"copy 0 (want {n_copies} results, every copy the same bits)")
     print(f"MoE flagship ({MOE_EXPERTS} experts, top-{MOE_TOP_K}, capacity "
           f"factor {MOE_CAPACITY}): served {N_REQUESTS} requests of "
           f"{BATCH}x{PROMPT_LEN} + {NEW_TOKENS}; (b) {TRAIN_STEPS} steps, "
           f"losses {blosses}; main-path launches {main_counts} as counted "
-          f"from the code; {copies['calls']} kernel-6 results in (c), every "
-          f"copy the same bits")
+          f"from the code; {copies['calls']} kernel-6 results in the first "
+          f"steps of (c)-(e), every copy the same bits; (e) zero1 and fsdp "
+          f"on (4, 2) bitwise plain dp's losses and parameters")
+    tok = 8 * (tcfg.max_seq - 1)
+    for label, r in runs.items():
+        print(f"{label}: {r['ms']!r} ms per step (CUDA events over steps 2-"
+              f"{MOE_EP_STEPS}, kernel 6 unchecked), {tok / r['ms'] * 1e3!r} "
+              f"tokens/s, host enqueue {r['host_ms']!r} ms per step; peak "
+              f"{r['peak'] / 2**30!r} GiB allocated (max_memory_allocated, "
+              f"{r['base'] / 2**30!r} GiB held before the run); step 0's "
+              f"routing against one device's: {r['flips'][0]} experts, "
+              f"{r['flips'][1]} slot verdicts of {r['flips'][2]} choices "
+              f"differ  [{card}]")
 
-    # ---- (c) against one device, and the controls -------------------------
-    ep_leaves = {}
-    for key, (step, state, losses) in ep_runs.items():
-        ep_leaves[key] = (losses, [x.clone() for x in leaves(state)])
-    timed = {key: run[:2] for key, run in ep_runs.items()}
-    del ep_runs
-
+    # ---- the controls -------------------------------------------------------
     def rank_zero(contribs, ring, op="sum"):
         return contribs[:1].expand_as(contribs)
 
     tpm.ring_allreduce = rank_zero
     try:
-        _, cstate, closs = run("control: rank 0's partials", RankMesh(
-            [dev] * 8, ("dp", "ep"), (1, 8)), clone_tree(params0),
-            MOE_EP_STEPS)
+        ctrl = mesh_run("control: rank 0's partials", (1, 8), count=False)
     finally:
         tpm.ring_allreduce = ring_allreduce
-    ctrl = (closs, [x.clone() for x in leaves(cstate)])
-    del cstate
 
     def per_rank(self, state, inputs, rows):
         for r in range(self.dp):
@@ -3200,43 +3381,78 @@ def moe_slice(dev, card, dense_ms):
     sound_rank_losses = tfm._DataParallel._rank_losses
     tfm._DataParallel._rank_losses = per_rank
     try:
-        _, astate, aloss = run("per-rank aux", RankMesh(
-            [dev] * 8, ("dp", "ep"), (2, 4)), clone_tree(params0),
-            MOE_EP_STEPS)
+        per_rank_aux = mesh_run("per-rank aux", (2, 4), count=False)
     finally:
         tfm._DataParallel._rank_losses = sound_rank_losses
-    per_rank_aux = (aloss, [x.clone() for x in leaves(astate)])
-    del astate
-    torch.cuda.empty_cache()
 
-    one = (blosses[:MOE_EP_STEPS], one_leaves)
-    gaps = {f"(c) {k}": (loss_gaps(v[0], one[0]), rel_gap(v[1], one[1], p0))
-            for k, v in ep_leaves.items()}
-    gaps["control: rank 0's partials (1, 8)"] = (
-        loss_gaps(ctrl[0], one[0]), rel_gap(ctrl[1], one[1], p0))
-    gaps["per-rank aux (2, 4)"] = (loss_gaps(per_rank_aux[0], one[0]),
-                                   rel_gap(per_rank_aux[1], one[1], p0))
+    def tp_zero(contribs, ring, op="sum"):
+        """Kernel 6 with the contributions of the ranks off tp coordinate
+        0 of the experts' ep × tp ring zeroed: each expert's other d_ff
+        half dropped (forward, and the gradient to the experts' input)."""
+        if "ep" in ring.shape and ring.shape.get("tp", 1) > 1:
+            keep = torch.arange(ring.size, device=contribs.device) % \
+                ring.shape["tp"] == 0
+            contribs = contribs * keep.to(contribs.dtype).view(
+                -1, *[1] * (contribs.dim() - 1))
+        return ring_allreduce(contribs, ring, op)
+
+    def rank_zero_grad(x, ring, op="sum"):
+        return (x[0] * ring.size).reshape(ring.size, -1)
+
+    tpm.ring_allreduce = tp_zero
+    try:
+        tp_ctrl = mesh_run("control: tp 0's partials", (1, 4, 2),
+                           count=False)
+    finally:
+        tpm.ring_allreduce = ring_allreduce
+    sound_reduce_scatter = tfm.ring_reduce_scatter
+    tfm.ring_reduce_scatter = rank_zero_grad
+    try:
+        grad_ctrl = mesh_run("control: rank 0's gradient", (4, 2), "fsdp",
+                             count=False)
+    finally:
+        tfm.ring_reduce_scatter = sound_reduce_scatter
+
+    gaps = {label: r["gaps"] for label, r in runs.items()}
+    gaps["control: rank 0's partials (1, 8)"] = against_one(ctrl)
+    gaps["per-rank aux (2, 4)"] = against_one(per_rank_aux)
+    ep24 = runs["(c) (2, 4)"]
     gaps["per-rank aux against (c) (2, 4)"] = (
-        loss_gaps(per_rank_aux[0], ep_leaves[2, 4][0]),
-        rel_gap(per_rank_aux[1], ep_leaves[2, 4][1], p0))
-    print(f"expert-parallel MoE flagship against one device ({MOE_EP_STEPS} "
-          f"steps): losses one device {one[0]}, "
-          f"{ {str(k): v[0] for k, v in ep_leaves.items()} }, control "
-          f"{ctrl[0]}, per-rank aux {per_rank_aux[0]}")
+        loss_gaps(per_rank_aux["losses"], ep24["losses"]),
+        rel_gap(per_rank_aux["params"], ep24["params"], p0))
+    gaps["control: tp 0's partials (1, 4, 2)"] = against_one(tp_ctrl)
+    gaps["control: rank 0's gradient, fsdp (4, 2)"] = against_one(grad_ctrl)
+    print(f"MoE flagship over rank meshes against one device "
+          f"({MOE_EP_STEPS} steps): losses one device {one[0]}, "
+          f"{ {k: r['losses'] for k, r in runs.items()} }, controls "
+          f"{ctrl['losses']}, {tp_ctrl['losses']}, {grad_ctrl['losses']}, "
+          f"per-rank aux {per_rank_aux['losses']}")
     for label, (lg, pg) in gaps.items():
         print(f"{label}: relative loss gaps {lg} (rtol {EP_LOSS_RTOL}), "
               f"parameter gap ||p - p_ref|| / ||p_ref - p_0|| {pg!r} "
               f"(limit {EP_PARAM_REL})")
-    for key in ep_leaves:
-        lg, pg = gaps[f"(c) {key}"]
+    for key in runs:
+        lg, pg = gaps[key]
         check(max(lg) <= EP_LOSS_RTOL and pg <= EP_PARAM_REL,
-              f"(c) {key}: loss gaps {lg} or parameter gap {pg} to one "
-              f"device outside rtol {EP_LOSS_RTOL} / limit {EP_PARAM_REL}")
-    lg, pg = gaps["control: rank 0's partials (1, 8)"]
-    check(min(lg) > EP_LOSS_RTOL and pg > EP_PARAM_REL,
-          f"control (rank 0's partials alone): loss gaps {lg} or parameter "
-          f"gap {pg} inside rtol {EP_LOSS_RTOL} / limit {EP_PARAM_REL}")
-    del ep_leaves, ctrl, per_rank_aux, one_leaves
+              f"{key}: loss gaps {lg} or parameter gap {pg} to one device "
+              f"outside rtol {EP_LOSS_RTOL} / limit {EP_PARAM_REL}")
+    for key in ("control: rank 0's partials (1, 8)",
+                "control: tp 0's partials (1, 4, 2)"):
+        lg, pg = gaps[key]
+        check(min(lg) > EP_LOSS_RTOL and pg > EP_PARAM_REL,
+              f"{key}: loss gaps {lg} or parameter gap {pg} inside rtol "
+              f"{EP_LOSS_RTOL} / limit {EP_PARAM_REL}")
+    # The rank-0-gradient control's first loss comes before any update:
+    # fsdp's own, bit for bit; the later ones and the parameters must miss.
+    lg, pg = gaps["control: rank 0's gradient, fsdp (4, 2)"]
+    fsdp_losses = runs["(e) fsdp (4, 2)"]["losses"]
+    check(grad_ctrl["losses"][0] == fsdp_losses[0]
+          and min(lg[1:]) > EP_LOSS_RTOL and pg > EP_PARAM_REL,
+          f"control (rank 0's gradient alone): first loss "
+          f"{grad_ctrl['losses'][0]} against fsdp's {fsdp_losses[0]}, later "
+          f"loss gaps {lg[1:]} or parameter gap {pg} inside rtol "
+          f"{EP_LOSS_RTOL} / limit {EP_PARAM_REL}")
+    del runs, ctrl, per_rank_aux, tp_ctrl, grad_ctrl, one_leaves, one
     torch.cuda.empty_cache()
 
     # ---- (a) teacher-forced, int8 weights, times ------------------------
@@ -3322,54 +3538,39 @@ def moe_slice(dev, card, dense_ms):
           f"MoE float32 flash loss {lf} vs dense {ld}")
     del f32, rf, rd
 
-    # ---- kernel 6 against plain at the ep shapes -------------------------
+    # ---- kernel 6 against plain at the (ep·tp, ...) partial shapes ---------
+    # Once for each distinct shape, on the ep × tp ring of the last mesh
+    # that gives it.
     gen = torch.Generator(device=dev).manual_seed(13)
     m = 8 * (tcfg.max_seq - 1) * tcfg.d_model  # the (b, s, d) partials
-    for dp, ep in MOE_EP_MESHES:
-        ring = axis_ring(RankMesh([dev] * ep, ("ep",)), "ep")
-        x = torch.randn(ep, m // dp, generator=gen, device=dev)
+    partials = {}
+    for dp, ep, tp in (*((dp, ep, 1) for dp, ep in MOE_EP_MESHES),
+                       *MOE_TP_MESHES):
+        partials.setdefault((ep * tp, m // dp), []).append((dp, ep, tp))
+    for (n, cols), shapes in partials.items():
+        ring = tp_ring(RankMesh([dev] * int(np.prod(shapes[-1])),
+                                ("dp", "ep", "tp"), shapes[-1]),
+                       ("ep", "tp"))
+        x = torch.randn(n, cols, generator=gen, device=dev)
         got, ref = ring_allreduce(x, ring), ring_allreduce_plain(x)
         torch.cuda.synchronize()
-        check(bits_equal(got, ref), f"kernel 6 on the ({dp}, {ep}) ep "
-                                    f"partials differs from plain")
+        check(bits_equal(got, ref), f"kernel 6 on the ({n}, {cols}) "
+                                    f"experts' partials differs from plain")
         ar_ms = kernel_ms(lambda c: ring_allreduce(c, ring), [(x,)], 20)
-        ar_bound = bound(2 * ep * (m // dp) * 4, (ep - 1) * (m // dp),
+        ar_bound = bound(2 * n * cols * 4, (n - 1) * cols,
                          torch.float32)[0]
-        print(f"kernel 6 at the ({dp}, {ep}) ep partials ({ep}, {m // dp}) "
-              f"float32: bitwise equal to plain, {ar_ms * 1e3!r} us against "
-              f"a {ar_bound * 1e3!r} us bound  [{card}]")
+        print(f"kernel 6 at the experts' partials ({n}, {cols}) float32 of "
+              f"the (dp, ep, tp) meshes {shapes} (the ep x tp ring of "
+              f"{shapes[-1]}): bitwise equal to plain, {ar_ms * 1e3!r} us "
+              f"against a {ar_bound * 1e3!r} us bound  [{card}]")
         del x, got, ref
     torch.cuda.empty_cache()
 
-    # ---- times -------------------------------------------------------------
     tok = 8 * (tcfg.max_seq - 1)
     print(f"(b) MoE one device: {one_ms!r} ms per step, "
           f"{tok / one_ms * 1e3!r} tokens/s; dense flagship {dense_ms!r} ms "
           f"per step, {tok / dense_ms * 1e3!r} tokens/s (phase 4)  [{card}]")
-    for (dp, ep), (tstep, tstate) in timed.items():
-        start.record()
-        host = time.perf_counter()
-        for _ in range(MOE_EP_STEPS):
-            tstep(tstate, tokens)
-        host = (time.perf_counter() - host) * 1e3 / MOE_EP_STEPS
-        end.record()
-        torch.cuda.synchronize()
-        ep_ms = start.elapsed_time(end) / MOE_EP_STEPS
-        print(f"(c) MoE ({dp}, {ep}): {ep_ms!r} ms per step, "
-              f"{tok / ep_ms * 1e3!r} tokens/s (CUDA events over "
-              f"{MOE_EP_STEPS} steps after {MOE_EP_STEPS}), host enqueue "
-              f"{host!r} ms per step  [{card}]")
-        prof = profile_steps(lambda: tstep(tstate, tokens), 1,
-                             f"(c) MoE ({dp}, {ep})", ep_ms, card)
-        if prof is not None:
-            g = prof["groups"]
-            print(f"(c) MoE ({dp}, {ep}): kernel 6 "
-                  f"{g.get('all-reduce kernel 6', (0, 0))} (ms, launches) "
-                  f"a step; device busy share {prof['busy']!r}; "
-                  f"{prof['launches']!r} launches a step  [{card}]")
-    del timed, tstep, tstate
-    torch.cuda.empty_cache()
-    print(f"MoE phase launches (main path: (a)-(c)): {main_counts}")
+    print(f"MoE phase launches (main path: (a)-(e)): {main_counts}")
     return main_counts
 
 

@@ -1,4 +1,5 @@
-"""Mixture-of-Experts FFN, its experts split over a mesh's ``ep`` axis.
+"""Mixture-of-Experts FFN, its experts split over a mesh's ``ep`` axis and
+each expert's d_ff over its ``tp`` axis.
 
 Counterpart of ``mpi_tpu/models/moe.py``: GShard-style top-k routing with
 static shapes. Each token picks its ``top_k`` most probable experts, the
@@ -6,18 +7,23 @@ experts process fixed-capacity token buffers, and the choices that
 overflow a buffer fall through the residual connection. Everything is
 one-hot and einsum arithmetic, as there; no kernel of its own.
 
-**Expert parallelism.** Tokens are not split over ``ep``: every ep rank
-of a dp rank holds the same tokens, so the dispatch needs no exchange (the
-JAX package's step on a ``("dp", "ep")`` mesh compiles to all-reduces and
-all-gathers, no all-to-all). The router, its softmax, the slot arithmetic,
-the dispatch and combine one-hots and the aux statistics run once, on the
-activation the ep ranks share. Ep rank r reads its ``E/ep`` experts of
-``w1e`` and ``w2e`` as views, fills its experts' buffers from its copy of
-the activation (:func:`~mpi_tpu_torch.parallel.tensor_parallel.tp_copy`:
-the backward sums the ranks' gradients to it on kernel 6), runs them, and
-contracts them with its experts' part of the combine into a partial that
-:func:`~mpi_tpu_torch.parallel.tensor_parallel.tp_reduce` sums over the ep
-ring on kernel 6, where GSPMD inserts an all-reduce over ``ep``.
+**Expert parallelism.** Tokens are not split over ``ep`` or ``tp``: every
+ep and tp rank of a dp rank holds the same tokens, so the dispatch needs
+no exchange (the JAX package's step on a ``("dp", "ep", "tp")`` mesh
+compiles to all-reduces and all-gathers, no all-to-all). The router, its
+softmax, the slot arithmetic, the dispatch and combine one-hots and the aux
+statistics run once, on the activation the ranks share. The experts run on
+one ring of the ep × tp ranks (``tp_ring(mesh, ("ep", "tp"))``, rank (e,
+j) at place e·tp + j): rank (e, j) reads its ``E/ep`` experts' d_ff slice
+j of ``w1e`` (columns) and ``w2e`` (rows) as views, fills its experts'
+buffers from its copy of the activation
+(:func:`~mpi_tpu_torch.parallel.tensor_parallel.tp_copy`: the backward
+sums the ranks' gradients to it in one kernel-6 launch), runs its slice of
+their GELU FFN, and contracts it with its experts' part of the combine into
+a partial that :func:`~mpi_tpu_torch.parallel.tensor_parallel.tp_reduce`
+sums over the ring in one kernel-6 launch, where GSPMD inserts one
+all-reduce over both axes. The GELU is elementwise in d_ff, so each tp
+slice's output is exact and the sum over j is the expert's.
 """
 
 from __future__ import annotations
@@ -118,20 +124,24 @@ def moe_parts(x: torch.Tensor, params: Dict[str, Any], n_experts: int,
     dispatch = torch.einsum("gnke,gnkc->gnec", sel, slot)
     combine = torch.einsum("gnke,gnkc,gnk->gnec", sel, slot, gates)
 
-    # Ep rank t: its experts' buffers from its copy of x, its experts'
-    # FFN, its part of the combine; tp_reduce sums the partials.
-    ep = tp_size(ring)
-    xin = torch.einsum("gntec,tgnd->tgecd",
+    # Rank (u, j) of the ring: its experts' buffers from its copy of x,
+    # its experts' FFN on its d_ff slice j, its part of the combine;
+    # tp_reduce sums the ep·tp partials.
+    tp = 1 if ring is None else ring.shape.get("tp", 1)
+    ep = tp_size(ring) // tp
+    xin = torch.einsum("gnuec,ujgnd->ujgecd",
                        dispatch.to(x.dtype).unflatten(2, (ep, -1)),
-                       tp_copy(x, ring))
-    h = F.gelu(torch.einsum("tgecd,tedf->tgecf", xin,
-                            params["w1e"].to(x.dtype).unflatten(0, (ep, -1))),
+                       tp_copy(x, ring).unflatten(0, (ep, tp)))
+    w1e = params["w1e"].to(x.dtype).unflatten(0, (ep, -1))
+    h = F.gelu(torch.einsum("ujgecd,uedjf->ujgecf", xin,
+                            w1e.unflatten(3, (tp, -1))),
                approximate="tanh")
-    y_e = torch.einsum("tgecf,tefd->tgecd", h,
-                       params["w2e"].to(x.dtype).unflatten(0, (ep, -1)))
-    partial = torch.einsum("gntec,tgecd->tgnd",
+    w2e = params["w2e"].to(x.dtype).unflatten(0, (ep, -1))
+    y_e = torch.einsum("ujgecf,uejfd->ujgecd", h,
+                       w2e.unflatten(2, (tp, -1)))
+    partial = torch.einsum("gnuec,ujgecd->ujgnd",
                            combine.to(x.dtype).unflatten(2, (ep, -1)), y_e)
-    y = tp_reduce(partial, ring)
+    y = tp_reduce(partial.flatten(0, 1), ring)
 
     # Load balance: first choices for any k (the GShard form).
     frac = F.one_hot(topk_idx[..., 0], e).float().mean(dim=(0, 1))
@@ -151,9 +161,10 @@ def moe_ffn(x: torch.Tensor, params: Dict[str, Any], n_experts: int,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k routed expert FFN (``top_k=1`` is Switch) of ``x`` ``(batch,
     seq, d)``, routed within each batch row, with the experts split over
-    the ep ranks of ``ring`` (see the module note). Returns ``(y, aux)``:
-    ``y`` of x's shape (a token whose every choice overflowed gets zeros)
-    and the float32 load-balance loss, minimal at uniform routing.
+    the ep ranks of ``ring`` and their d_ff over its tp ranks (see the
+    module note). Returns ``(y, aux)``: ``y`` of x's shape (a token whose
+    every choice overflowed gets zeros) and the float32 load-balance loss,
+    minimal at uniform routing.
 
     Each expert holds ``ceil(top_k · seq / E · capacity_factor)`` slots a
     group; the gates are the raw router probabilities of the choices that

@@ -55,7 +55,8 @@ routed top-k expert FFN of :mod:`.moe`, and the blocks carry the aux
 statistics out (each expert's fraction of first choices and its mean
 router probability), from which the loss adds ``moe_aux_coef`` times the
 load-balance penalty summed over the layers. An ``ep`` axis above 1 splits
-the experts over its ranks, their partial outputs summed on kernel 6. The
+the experts over its ranks and a ``tp`` axis each expert's d_ff, the ep ×
+tp ranks' partial outputs summed in one kernel-6 launch. The
 penalty is the JAX package's over the whole batch: under dp the fractions
 are the global batch's (every dp rank's forward first, then the ranks'
 fractions summed over the dp ring on kernel 6, then the backwards: the
@@ -377,7 +378,7 @@ def _ffn(x, blk, cfg: TransformerConfig, ring: Optional[RankMesh] = None):
     ``(y, stats)``. Dense, over the tp ranks of ``ring``: rank r its d_ff
     columns of w1 and rows of w2, the partials summed by :func:`tp_reduce`,
     and empty statistics ``(2, 0)``. With experts, the routed FFN over the
-    ep ranks of ``ring`` and its aux statistics ``(2, E)``
+    ep × tp ranks of ``ring`` and its aux statistics ``(2, E)``
     (:func:`~mpi_tpu_torch.models.moe.moe_parts`)."""
     if cfg.n_experts > 0:
         return moe_parts(x, blk["moe"], cfg.n_experts, cfg.capacity_factor,
@@ -399,7 +400,8 @@ def block_body(x, blk, cfg: TransformerConfig,
     :func:`_ffn`). ``blk`` is the block's tree, or a callable that returns
     it: an FSDP step's block, whose weights are gathered here, and again
     when remat recomputes the block in the backward. The experts run over
-    ``mesh``'s ``ep`` ring, the rest over its ``tp`` ring."""
+    one ring of ``mesh``'s ``ep`` and ``tp`` ranks, the rest over its
+    ``tp`` ring."""
     if callable(blk):
         blk = blk()
     ring = tp_ring(mesh)
@@ -408,8 +410,8 @@ def block_body(x, blk, cfg: TransformerConfig,
     x = x + _attention(h, blk, cfg, mesh, ring)
     h = _layernorm(x, blk["ln2"]["scale"].to(x.dtype),
                    blk["ln2"]["bias"].to(x.dtype))
-    y, stats = _ffn(h, blk, cfg, tp_ring(mesh, "ep") if cfg.n_experts
-                    else ring)
+    y, stats = _ffn(h, blk, cfg, tp_ring(mesh, ("ep", "tp"))
+                    if cfg.n_experts else ring)
     return x + y, stats
 
 
@@ -507,10 +509,10 @@ def check_mesh(mesh: Any, cfg: TransformerConfig,
                embedding: bool = True) -> None:
     """Raise unless ``mesh`` is None or a :class:`RankMesh` this slice
     runs: ``TypeError`` for another object, ``NotImplementedError`` for
-    ranks over several distinct devices and for experts with a ``tp`` axis
-    above 1, ``ValueError`` when its ``tp`` axis does not divide the heads
-    (as the JAX package checks), d_ff or the vocabulary (each tp rank
-    reads an equal slice of w1, w2 and the embedding), or, with experts,
+    ranks over several distinct devices, ``ValueError`` when its ``tp``
+    axis does not divide the heads (as the JAX package checks), d_ff or
+    the vocabulary (each tp rank reads an equal slice of w1, w2, the
+    experts' d_ff and the embedding), or, with experts,
     its ``ep`` axis does not divide them (each ep rank runs an equal
     share). ``embedding=False`` leaves the vocabulary out: an encoder with
     no token embedding (:mod:`.vit`)."""
@@ -543,10 +545,6 @@ def check_mesh(mesh: Any, cfg: TransformerConfig,
         raise ValueError(
             f"mpi_tpu_torch: ep={ep} must divide n_experts={cfg.n_experts} "
             f"(each ep rank runs an equal share of the experts)")
-    if tp > 1:
-        raise NotImplementedError(
-            f"mpi_tpu_torch: experts with tp={tp} (each expert's d_ff over "
-            f"tp) are not ported yet: ROADMAP.md, Queue 1 item 11")
 
 
 def make_optimizer(optimizer: str = "adamw", learning_rate: float = 1e-3,
@@ -925,7 +923,8 @@ def rank_state(state: Dict[str, Any], rank: int, tp_rank: int = 0,
     tree of the parameter tree's layout whose leaves are views of the
     state's tensors: the rank's piece of a leaf that dp, tp or ep shards
     (the experts' ``w1e`` / ``w2e`` hold ``n_experts / ep`` experts a
-    rank), the leaf whole where none does. These are the shapes of the
+    rank and ``d_ff / tp`` of each one's d_ff, and under fsdp ``d_model /
+    dp`` of its d_model), the leaf whole where none does. These are the shapes of the
     JAX package's shards on that rank's device; an optimizer tensor not of
     its leaf's shape (adafactor's factored moments) is given whole, as
     zero1 and fsdp keep it."""
@@ -1016,10 +1015,6 @@ def make_train_parts(cfg: TransformerConfig, mesh: Any = None,
         raise ValueError("mpi_tpu_torch: fsdp subsumes zero1 (optimizer "
                          "state follows the dp-sharded parameters); pass "
                          "only fsdp=True")
-    if cfg.n_experts and (zero1 or fsdp):
-        raise NotImplementedError(
-            f"mpi_tpu_torch: experts under {'fsdp' if fsdp else 'zero1'} "
-            f"are not ported yet: ROADMAP.md, Queue 1 item 11")
     build = make_optimizer(optimizer, learning_rate, warmup_steps,
                            total_steps)
     if has_dp and mesh.shape["dp"] > 1:

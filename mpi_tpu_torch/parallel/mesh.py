@@ -130,15 +130,25 @@ def axis_slice(mesh: RankMesh, axis: str, index: int) -> RankMesh:
                     names, tuple(part.shape))
 
 
-def axis_ring(mesh: RankMesh, axis: str) -> RankMesh:
+def axis_ring(mesh: RankMesh,
+              axis: Union[str, Tuple[str, ...]]) -> RankMesh:
     """The ranks along ``axis`` at coordinate 0 of every other axis, as a
     1-D mesh over ``axis`` in rank order: the dp ring of the (sp, tp)
     position (0, 0), whose ``size`` the ring collectives take as their
-    rank count."""
-    grid, d = _rank_grid(mesh, axis)
-    index = [slice(None) if a == axis else 0 for a in mesh.axis_names]
+    rank count. A tuple of axes gives one ring over all of them, their
+    ranks row-major in the mesh's axis order: ``("ep", "tp")`` is the ring
+    of ep·tp ranks at dp coordinate 0, rank (e, j) at place e·tp + j. Its
+    ``shape`` keeps each axis's size (the collectives read only ``size``
+    and the rank order)."""
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    keep = sorted(_rank_grid(mesh, a)[1] for a in axes)
+    grid = _rank_grid(mesh, axes[0])[0]
+    index = [slice(None) if i in keep else 0
+             for i in range(len(mesh.axis_names))]
     ranks = grid[tuple(index)].reshape(-1).tolist()
-    return RankMesh([mesh.devices[r] for r in ranks], (axis,))
+    names = tuple(mesh.axis_names[i] for i in keep)
+    return RankMesh([mesh.devices[r] for r in ranks], names,
+                    [mesh.shape[a] for a in names])
 
 
 def mesh_device(mesh: RankMesh, x: torch.Tensor, name: str) -> str:

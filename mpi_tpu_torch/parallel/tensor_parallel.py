@@ -22,8 +22,9 @@ each over the tp ring of a :class:`RankMesh`
   launch. The ``(b, s, V)`` logits are never gathered.
 
 :func:`tp_copy` and :func:`tp_reduce` take any ring: the Mixture-of-Experts
-FFN runs them over the ``ep`` axis (``tp_ring(mesh, "ep")``), each ep rank
-its experts (:mod:`..models.moe`).
+FFN runs them over one ring of the ``ep`` and ``tp`` axes (``tp_ring(mesh,
+("ep", "tp"))``, ep·tp ranks), each rank its experts' slice of their d_ff
+(:mod:`..models.moe`).
 
 The ranks share one device. Kernel 6 writes every rank's copy of a
 reduction, and every copy holds the same bits (one fold order); a
@@ -39,7 +40,7 @@ Without a tp axis (``ring`` None) :func:`tp_copy` adds a tp dimension of
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -55,13 +56,18 @@ REDUCE_DTYPE = torch.float32
 
 
 def tp_ring(mesh: Optional[RankMesh],
-            axis: str = "tp") -> Optional[RankMesh]:
-    """The ring of ``mesh``'s ``axis`` (``tp``, or ``ep`` for the experts;
-    at coordinate 0 of the other axes), or None where the mesh has no such
-    axis above 1."""
-    if mesh is None or mesh.shape.get(axis, 1) == 1:
+            axis: Union[str, Tuple[str, ...]] = "tp"
+            ) -> Optional[RankMesh]:
+    """The ring of ``mesh``'s ``axis`` (at coordinate 0 of the other axes),
+    or None where the mesh has no such axis above 1. A tuple of axes (the
+    experts' ``("ep", "tp")``) gives one ring over those of them that are
+    above 1 (:func:`~mpi_tpu_torch.parallel.mesh.axis_ring`)."""
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    live = tuple(a for a in axes
+                 if mesh is not None and mesh.shape.get(a, 1) > 1)
+    if not live:
         return None
-    return axis_ring(mesh, axis)
+    return axis_ring(mesh, live[0] if len(live) == 1 else live)
 
 
 def tp_size(ring: Optional[RankMesh]) -> int:

@@ -259,14 +259,10 @@ def test_ep_must_divide_the_experts():
         make_train_step(cfg, mesh=mesh)
 
 
-@pytest.mark.parametrize("case", ["tp", "zero1", "fsdp"])
-def test_ep_with_tp_zero1_or_fsdp_raises(case):
-    cfg = TransformerConfig(**MODEL)
-    if case == "tp":
-        mesh = RankMesh(["cpu"] * 8, ("dp", "ep", "tp"), (1, 4, 2))
-        kw = {}
-    else:
-        mesh = _port_mesh("dp2_ep4")
-        kw = {case: True}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        make_train_step(cfg, mesh=mesh, **kw)
+def test_tp_must_divide_d_ff_with_experts():
+    """With experts a tp axis splits each expert's d_ff: a tp that does
+    not divide it raises, as for the dense FFN."""
+    cfg = TransformerConfig(**{**MODEL, "d_ff": 66})
+    mesh = RankMesh(["cpu"] * 8, ("dp", "ep", "tp"), (1, 2, 4))
+    with pytest.raises(ValueError, match="tp=4 must divide d_ff=66"):
+        make_train_step(cfg, mesh=mesh)
