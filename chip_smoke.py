@@ -117,6 +117,19 @@ port's paths and checks what comes out:
   in float32 and bf16 with a faulty control (rank 0's gradient alone), ms
   a step, tokens/s and MFU, a profiled step of each, and the trained tree
   decoded;
+* the trainer's I/O: a seeded 64 MiB uint16 corpus, the flagship
+  trained from it through ``train.main --corpus`` for six steps with an
+  async checkpoint every three (``data.py``'s loader and native gather,
+  ``utils/checkpoint.py``), on one device and over 8 dp ranks under FSDP
+  (the flash kernels, and the all-gather and all-reduce kernels), then
+  resumed from step 3 with ``--resume`` into a state drawn from another
+  seed: its losses equal the uninterrupted run's within the gap between
+  two uninterrupted runs (bitwise when the card repeats a run), and two
+  controls (the optimizer's state dropped, the stream restarted at step
+  0) miss; each save's cost to the step loop and its write time, the
+  checkpoint's bytes against the state's, the gather's time per batch,
+  ms/step from the corpus against the synthetic stream, and
+  ``torch.sum`` at the tp and ep partial shapes;
 
 then times the paths and the kernels, and prints:
 
@@ -130,8 +143,9 @@ then times the paths and the kernels, and prints:
   ``speculative_launches``, on the speculative phase,
   ``lora_launches``, on the LoRA phase, ``vit_launches``, on the ViT
   phase, ``ssm_launches``, on the state-space phase, and
-  ``ssm_train_launches``, on the state-space training phase, checked
-  against the count worked out from the code),
+  ``ssm_train_launches``, on the state-space training phase, and
+  ``io_launches``, on the trainer's I/O phase, checked against the count
+  worked out from the code),
   its largest error against the plain version, and
   its time beside its bound, the plain version's time and one PyTorch
   library call's time;
@@ -536,6 +550,23 @@ SSM_TRAIN_REPEATS = 3
 # over and 6 times under).
 SSM_DP_LOSS_RTOL = {"float32": 1e-5, "bf16": 2e-3}
 SSM_DP_PARAM_REL = {"float32": 1e-3, "bf16": 0.2}
+
+# Phase 19, the trainer's I/O: the flagship trained through train.main from
+# a seeded corpus of IO_CORPUS_TOKENS uint16 ids (64 MiB) for IO_STEPS
+# steps, an async checkpoint every IO_EVERY steps, on one device and over
+# IO_DP dp ranks under FSDP; then resumed from step IO_EVERY. The resumed
+# losses must equal the uninterrupted run's within the gap between two
+# uninterrupted runs, measured in the same call: 0.0 (bitwise) when the
+# card repeats a run bit for bit, as the port's kernels and cuBLAS at
+# fixed shapes do. The gather is timed over IO_GATHER_BATCHES batches.
+IO_CORPUS_TOKENS = 32 * 2 ** 20
+IO_STEPS = 6
+IO_EVERY = 3
+IO_DP = 8
+IO_GATHER_BATCHES = 50
+# (8, 8,388,608) and (4, 4,194,304) float32: the tp and ep partials that
+# kernel 6 sums in phases 10 and 13 (PERF.md's row 6 has its times there).
+PARTIAL_SHAPES = ((8, 8388608), (4, 4194304))
 
 N_REQUESTS = 3
 BATCH = 8
@@ -5131,6 +5162,296 @@ def ssm_train_slice(dev, card):
     return main_counts, err
 
 
+def io_launches(layers, steps, dp):
+    """Launches of kernels 1-7 in ``steps`` steps of train.py's flagship
+    step, counted from the code: one device, or ``dp`` ranks under FSDP
+    (dp_launches; every flagship leaf is sharded at dp 8, so no replicated
+    leaf takes a launch of its own)."""
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ring_allgather",
+             "ring_allreduce")
+    per_step = dp_launches("one" if dp == 1 else "fsdp", dp, layers, 0)
+    return {**{k: steps * n for k, n in zip(names, per_step)},
+            "flash_decode_attention": 0, "sendrecv": 0}
+
+
+def state_bytes(state):
+    """Bytes of the storages a training state's tensors and its optimizer's
+    tensors hold, each storage once."""
+    import torch
+
+    seen = {}
+
+    def walk(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+        elif isinstance(node, torch.optim.Optimizer):
+            for held in node.state.values():
+                walk(list(held.values()))
+        elif torch.is_tensor(node):
+            st = node.untyped_storage()
+            seen[(node.device, st.data_ptr())] = st.nbytes()
+
+    walk(state)
+    return sum(seen.values())
+
+
+def io_slice(dev, card):
+    """Phase 19: the trainer's I/O (``data.py``, ``utils/checkpoint.py``,
+    ``train.py --corpus --checkpoint-dir --checkpoint-every --resume``).
+    Writes a seeded 64 MiB uint16 corpus (ids below 8192) to a temporary
+    directory, then for one device and for IO_DP dp ranks under FSDP:
+    (a) the main path, counted alone: ``train.main`` at the flagship's full
+    width from the corpus through the loader for IO_STEPS steps, an async
+    checkpoint every IO_EVERY steps, launches against ``io_launches``;
+    (b) the same run again without checkpoints, whose gap to (a) is the
+    tolerance (0.0: bitwise); (c) the run stopped after step IO_EVERY's
+    checkpoint (step IO_STEPS's removed) and resumed by ``train.main
+    --resume`` into a state drawn from seed 1: its losses must equal (a)'s
+    within the tolerance; (d) two controls that must miss it, the same
+    restore with the optimizer's state dropped and with the stream started
+    at step 0. Prints each save's cost to the step loop and its write
+    time, the checkpoint's bytes against the state's, the gather's host
+    time per batch (native and numpy), ms/step from the corpus against the
+    synthetic stream, and ``torch.sum`` at the tp and ep partial shapes.
+    Returns ({kernel: launches on the main path}, {shape: torch.sum ms})."""
+    import contextlib
+    import io
+    import os
+    import re
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mpi_tpu_torch import train
+    from mpi_tpu_torch.data import (ShardedLoader, _gather_windows,
+                                    _gather_windows_plain, from_token_file)
+    from mpi_tpu_torch.models import make_train_step
+    from mpi_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
+                                             flash_fwd)
+    from mpi_tpu_torch.ops.decode_attention import flash_decode_attention
+    from mpi_tpu_torch.ops.ring_collectives import (ring_allgather,
+                                                    ring_allreduce)
+    from mpi_tpu_torch.parallel import RankMesh, sendrecv
+    from mpi_tpu_torch.utils.checkpoint import (all_steps,
+                                                restore_checkpoint)
+
+    wrappers = {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
+                "flash_bwd_dkv": flash_bwd_dkv,
+                "flash_decode_attention": flash_decode_attention,
+                "ring_allgather": ring_allgather,
+                "ring_allreduce": ring_allreduce, "sendrecv": sendrecv}
+    cfg = train.flagship_train_config()
+    seq = cfg.max_seq  # seq + 1 tokens a row
+    runs = {"one device": (1, []), f"dp {IO_DP} fsdp": (
+        IO_DP, ["--dp", str(IO_DP), "--fsdp"])}
+
+    def cli(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = train.main(argv)
+        out = out.getvalue()
+        check(rc == 0, f"train.main {argv} exited {rc}:\n{out}")
+        return out
+
+    def losses_of(out):
+        return {int(m[1]): float(m[2]) for m in re.finditer(
+            r"^step (\d+) loss (\S+) ", out, re.MULTILINE)}
+
+    def ms_of(out):
+        return float(re.search(r"^([\d.]+) ms/step", out, re.MULTILINE)[1])
+
+    def gap(got, want):
+        return max(abs(got[i] - want[i]) / abs(want[i]) for i in got)
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_io.")
+    try:
+        corpus = os.path.join(tmp, "corpus.bin")
+        np.random.default_rng(19).integers(
+            0, cfg.vocab, IO_CORPUS_TOKENS, dtype=np.uint16).tofile(corpus)
+        print(f"trainer I/O: corpus of {IO_CORPUS_TOKENS} uint16 ids "
+              f"({os.path.getsize(corpus)} bytes, seed 19, ids < "
+              f"{cfg.vocab}); the flagship ({cfg.n_layers} layers, batch "
+              f"{BATCH}, seq {seq - 1}) for {IO_STEPS} steps, a checkpoint "
+              f"every {IO_EVERY}, one device and dp {IO_DP} fsdp")
+
+        # ---- the gather, on the host ------------------------------------
+        mm = np.memmap(corpus, dtype=np.uint16, mode="r")
+        rng = np.random.default_rng(0)
+        picks = [rng.permutation(IO_CORPUS_TOKENS // seq)[:BATCH]
+                 for _ in range(IO_GATHER_BATCHES)]
+        # Every picked page mapped first (a first touch is a page fault,
+        # which would go to whichever gather ran first), then in turns.
+        check(all(np.array_equal(_gather_windows(mm, p, seq),
+                                 _gather_windows_plain(mm, p, seq))
+                  for p in picks),
+              "the native gather differs from the numpy gather")
+        times = {"native": [], "numpy": []}
+        for label, fn in (("native", _gather_windows),
+                          ("numpy", _gather_windows_plain),
+                          ("numpy", _gather_windows_plain),
+                          ("native", _gather_windows)):
+            t0 = time.perf_counter()
+            for p in picks:
+                fn(mm, p, seq)
+            times[label].append((time.perf_counter() - t0) / len(picks)
+                                * 1e6)
+        src = from_token_file(corpus, BATCH, seq, dtype="uint16")
+        for i in range(IO_GATHER_BATCHES):  # its pages mapped, as above
+            src(i)
+        t0 = time.perf_counter()
+        for i in range(IO_GATHER_BATCHES):
+            src(i)
+        per_batch = (time.perf_counter() - t0) / IO_GATHER_BATCHES * 1e6
+        print(f"(gather) a ({BATCH}, {seq}) batch from the memory-mapped "
+              f"corpus (warm page cache, pages mapped), host clock, "
+              f"{IO_GATHER_BATCHES} batches a turn, in turns native, numpy, "
+              f"numpy, native: native {times['native']!r} us, numpy "
+              f"{times['numpy']!r} us; from_token_file's source (its "
+              f"window permutation and the native gather) {per_batch!r} us "
+              f"(equal bits)  [{card}]")
+
+        # ---- (a) the main path, counted alone ---------------------------
+        dirs = {label: os.path.join(tmp, f"ckpt{n}")
+                for label, (n, _) in runs.items()}
+        outs = {}
+        for w in wrappers.values():
+            w.launches = 0
+        for label, (n, flags) in runs.items():
+            outs[label] = cli(["--corpus", corpus, "--steps", str(IO_STEPS),
+                               "--checkpoint-dir", dirs[label],
+                               "--checkpoint-every", str(IO_EVERY), *flags])
+        torch.cuda.synchronize()
+        main_counts = {name: w.launches for name, w in wrappers.items()}
+        want = {k: sum(io_launches(cfg.n_layers, IO_STEPS, n)[k]
+                       for n, _ in runs.values()) for k in wrappers}
+        check(main_counts == want,
+              f"trainer I/O launched {main_counts}, want {want} (counted "
+              f"from the code)")
+        print(f"(a) launches on the main path ({IO_STEPS} steps on one "
+              f"device and {IO_STEPS} dp {IO_DP} fsdp steps through "
+              f"train.main): {main_counts}")
+
+        for label, (n, flags) in runs.items():
+            out, d = outs[label], dirs[label]
+            full = losses_of(out)
+            check(sorted(full) == list(range(IO_STEPS)) and
+                  all(np.isfinite(list(full.values()))),
+                  f"{label}: losses {full}")
+            check(all_steps(d) == list(range(IO_EVERY, IO_STEPS + 1,
+                                             IO_EVERY)),
+                  f"{label}: checkpoints {all_steps(d)}")
+            saves = re.findall(r"^checkpoint step (\d+): ([\d.]+) ms on the "
+                               r"step loop .*written in ([\d.]+) ms", out,
+                               re.MULTILINE)
+            check(len(saves) == IO_STEPS // IO_EVERY,
+                  f"{label}: saves {saves}")
+            ckpt_bytes = os.path.getsize(os.path.join(
+                d, f"step_{IO_EVERY}", "arrays.npz"))
+
+            # ---- (b) the tolerance: the run again, no checkpoints -------
+            again = cli(["--corpus", corpus, "--steps", str(IO_STEPS),
+                         *flags])
+            tol = gap(losses_of(again), full)
+
+            # ---- (c) stopped after step IO_EVERY's save, resumed --------
+            shutil.rmtree(os.path.join(d, f"step_{IO_STEPS}"))
+            resumed_out = cli(["--corpus", corpus, "--steps",
+                               str(IO_STEPS - IO_EVERY), "--checkpoint-dir",
+                               d, "--resume", "--seed", "1", *flags])
+            resumed = losses_of(resumed_out)
+            check(f"resumed from step {IO_EVERY}" in resumed_out and
+                  sorted(resumed) == list(range(IO_EVERY, IO_STEPS)),
+                  f"{label}: the resumed run {resumed}")
+            r_gap = gap(resumed, full)
+            check(r_gap <= tol, f"{label}: resumed losses {resumed} differ "
+                                f"from the uninterrupted {full} by {r_gap} "
+                                f"(tolerance {tol})")
+
+            # ---- (d) the controls, the same restore through the library -
+            mesh = None if n == 1 else RankMesh([dev] * n,
+                                                ("dp", "sp", "tp"),
+                                                (n, 1, 1))
+            init_state, step = make_train_step(cfg, mesh=mesh,
+                                               fsdp=n > 1)
+            controls = {}
+            for kind, start in (("fresh optimizer", IO_EVERY),
+                                ("stream from step 0", 0)):
+                state = init_state(torch.Generator().manual_seed(1), dev)
+                restore_checkpoint(d, state, step=IO_EVERY)
+                if kind == "fresh optimizer":
+                    opt = state["opt"]
+                    opt.load_state_dict({"state": {}, "param_groups":
+                                         opt.state_dict()["param_groups"]})
+                else:  # the restored state whole: its moments too
+                    held = state_bytes(state)
+                loader = iter(ShardedLoader(
+                    from_token_file(corpus, BATCH, seq, dtype="uint16"),
+                    mesh=mesh, start_step=start, device=dev))
+                got = {}
+                for i in range(IO_EVERY, IO_STEPS):
+                    got[i] = float(step(state, next(loader))[1])
+                loader.close()
+                controls[kind] = gap(got, full)
+                del state, loader
+                torch.cuda.empty_cache()
+            for kind, g in controls.items():
+                check(g > tol, f"{label}: the control ({kind}) came within "
+                               f"{g} of the uninterrupted losses "
+                               f"(tolerance {tol})")
+            # Every storage once: the file holds the state's bytes and the
+            # npz and meta headers, no view written beside its base.
+            check(held <= ckpt_bytes <= held + 2 ** 20,
+                  f"{label}: checkpoint {ckpt_bytes} bytes for a state of "
+                  f"{held}")
+            print(f"{label}: losses {[full[i] for i in sorted(full)]}; two "
+                  f"uninterrupted runs {'bitwise' if tol == 0 else 'apart'}"
+                  f" (tolerance {tol!r}); resumed from step {IO_EVERY} in a "
+                  f"state drawn from seed 1: "
+                  f"{[resumed[i] for i in sorted(resumed)]}, gap {r_gap!r}; "
+                  f"controls: fresh optimizer "
+                  f"{controls['fresh optimizer']!r}, stream from step 0 "
+                  f"{controls['stream from step 0']!r}")
+            for at, loop_ms, write_ms in saves:
+                print(f"{label}: checkpoint step {at}: {loop_ms} ms on the "
+                      f"step loop (copy to the host), {write_ms} ms to write "
+                      f"on the writer thread  [{card}]")
+            print(f"{label}: checkpoint {ckpt_bytes} bytes against the "
+                  f"state's {held} bytes (params, buffers and moments, each "
+                  f"storage once); ms/step (CUDA events, each run's steps "
+                  f"after its first) with "
+                  f"checkpoints {ms_of(out)}, without {ms_of(again)}, "
+                  f"resumed {ms_of(resumed_out)}  [{card}]")
+            if n == 1:
+                synth = cli(["--steps", str(IO_STEPS)])
+                print(f"{label}: ms/step from the corpus {ms_of(again)} "
+                      f"against the synthetic stream {ms_of(synth)} (steps "
+                      f"1-{IO_STEPS - 1} of a run each)  [{card}]")
+            shutil.rmtree(d)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- torch.sum at the tp and ep partials (PERF.md's row 6) ----------
+    gen = torch.Generator(device=dev).manual_seed(19)
+    sums = {}
+    for shape in PARTIAL_SHAPES:
+        x = torch.randn(*shape, generator=gen, device=dev)
+        sums[shape] = kernel_ms(lambda c: torch.sum(c, 0), [(x,)], 10)
+        print(f"torch.sum(contribs, 0) at {shape} float32: "
+              f"{sums[shape] * 1e3!r} us  [{card}]")
+        del x
+    torch.cuda.empty_cache()
+    print(f"phase 19 took {time.perf_counter() - t_phase!r} s")
+    return main_counts, sums
+
+
 def decode_times(dev, gen, card, cfg):
     """Kernel 4 at the flagship decode shape (n_valid 0, 128 and 255) and
     at a long cache of the same widths (t 8192, n_valid 8191): kernel,
@@ -5477,7 +5798,11 @@ def main() -> int:
     ssm_train_counts, ssm_train_err = ssm_train_slice(dev, card)
     torch.cuda.empty_cache()
 
-    # ---- 19. result -----------------------------------------------------
+    # ---- 19. the trainer's I/O: corpus, checkpoints, resume -----------
+    io_counts, _ = io_slice(dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- 20. result -----------------------------------------------------
     source = "mpi_tpu_torch/ops/csrc/flash_attention.cu"
     kernels = []
     for name, replaces, n in zip(
@@ -5529,7 +5854,8 @@ def main() -> int:
                 "lora_launches": lora_counts[row["name"]],
                 "vit_launches": vit_counts[row["name"]],
                 "ssm_launches": ssm_counts[row["name"]],
-                "ssm_train_launches": ssm_train_counts[row["name"]]}
+                "ssm_train_launches": ssm_train_counts[row["name"]],
+                "io_launches": io_counts[row["name"]]}
                for row in kernels]
     print(card)
     print(json.dumps({"kernels": kernels}))

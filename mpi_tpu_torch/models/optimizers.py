@@ -28,11 +28,14 @@ no optax, so this module holds optax 0.2.6's rules:
 * :func:`learning_rate_schedule`: update k takes the rate at count k, as
   optax's ``scale_by_schedule`` does, so under a warmup the first update
   has rate 0.0. The rates are computed in float32, as optax computes them.
+  The count lives in each param group (``SCHEDULE_COUNT``), where optax
+  keeps it in the optimizer state: ``state_dict()`` saves it and
+  ``load_state_dict()`` restores it, so a resumed optimizer continues the
+  curve at the restored count.
 """
 
 from __future__ import annotations
 
-import itertools
 import math
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -41,9 +44,9 @@ import torch
 
 from ..parallel.zero import pieces_view, unshard
 
-__all__ = ["factored_dims", "Adafactor", "linear_schedule",
-           "warmup_cosine_decay_schedule", "learning_rate_schedule",
-           "build_optimizer"]
+__all__ = ["SCHEDULE_COUNT", "factored_dims", "Adafactor",
+           "linear_schedule", "warmup_cosine_decay_schedule",
+           "learning_rate_schedule", "build_optimizer"]
 
 Schedule = Callable[[int], float]
 _F32 = np.float32
@@ -53,6 +56,8 @@ _DECAY_RATE = 0.8
 _EPS = 1e-30
 _CLIPPING_THRESHOLD = 1.0
 _MIN_SCALE = 1e-3
+# The param-group key of a scheduled optimizer's update count.
+SCHEDULE_COUNT = "schedule_count"
 
 
 def factored_dims(shape: Sequence[int]) -> Optional[Tuple[int, int]]:
@@ -203,8 +208,9 @@ def build_optimizer(optimizer: str, leaves: List[torch.Tensor],
                     learning_rate: float,
                     schedule: Optional[Schedule]) -> torch.optim.Optimizer:
     """``optimizer`` (adamw, adafactor or sgd) over ``leaves``; with a
-    ``schedule``, each ``step()`` first sets the rate of its update count
-    (0, 1, ...) in every group."""
+    ``schedule``, each ``step()`` first sets in every group the rate of the
+    group's update count (``group[SCHEDULE_COUNT]``: 0, 1, ...), then
+    counts the update."""
     if optimizer == "adamw":
         opt = torch.optim.AdamW(leaves, lr=learning_rate, betas=(0.9, 0.999),
                                 eps=1e-8, weight_decay=1e-4)
@@ -213,12 +219,13 @@ def build_optimizer(optimizer: str, leaves: List[torch.Tensor],
     else:
         opt = Adafactor(leaves, lr=learning_rate)
     if schedule is not None:
-        counts = itertools.count()
+        for group in opt.param_groups:
+            group[SCHEDULE_COUNT] = 0
 
         def set_rate(o, args, kwargs):
-            rate = schedule(next(counts))
             for group in o.param_groups:
-                group["lr"] = rate
+                group["lr"] = schedule(group[SCHEDULE_COUNT])
+                group[SCHEDULE_COUNT] += 1
 
         opt.register_step_pre_hook(set_rate)
     return opt

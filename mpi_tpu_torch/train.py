@@ -5,10 +5,25 @@ at the configuration of ``bench.py``'s ``measure_train_step``: d_model
 1024, 8 layers, 8 heads of 128, d_ff 4096, vocab 8192, batch 8, seq 1024,
 bf16 compute over float32 master weights, attention in the flash kernels
 (forward and FA-2 backward), AdamW at lr 1e-3. Weights are random, drawn
-from ``--seed``, and every step trains on one fixed batch of random tokens.
-Prints the loss of each step, then the time per step after a warm-up step
-(CUDA events), tokens per second, model TFLOP/s and MFU against the card's
-dense bf16 peak.
+from ``--seed``. Step i trains on the i-th batch of a deterministic stream
+(``data.py``'s ``ShardedLoader``, which builds the next batches on the host
+while the device runs): ``SyntheticLM(vocab, batch, seq + 1, seed=--seed)``,
+or with ``--corpus PATH`` windows of a raw uint16 token file, memory-mapped
+and gathered by the port's native gather (``from_token_file``; every id
+must be below the vocabulary, checked once before training). Prints the
+loss and time of each step (CUDA events), then the time per step after the
+first, tokens per second, model TFLOP/s and MFU against the card's dense
+bf16 peak.
+
+``--checkpoint-dir DIR`` saves the training state every
+``--checkpoint-every`` steps (``utils/checkpoint.py``'s
+``AsyncCheckpointer``, the last 3 kept): the state is copied to the host
+before the next step, the file written on a background thread; each save's
+cost to the step loop and its write time are printed apart from the
+steps' times. ``--resume`` continues from the latest checkpoint there: the
+state is restored into the fresh one, the stream starts at that step, and
+the schedule's horizon is the restored step plus ``--steps``, as in
+``examples/train.py``.
 
 ``--attention`` takes every ``attention_impl`` of ``examples/train.py``;
 the sequence-parallel ones (ring, zigzag, Ulysses) run over ``--sp N``
@@ -46,6 +61,10 @@ Run::
     python -m mpi_tpu_torch.train --tp 8          # 8 tp ranks
     python -m mpi_tpu_torch.train --optimizer adafactor --warmup-steps 2
     python -m mpi_tpu_torch.train --lora 8 --sample 16  # LoRA, then sample
+    python -m mpi_tpu_torch.train --corpus tokens.bin --checkpoint-dir ckpt \
+        --checkpoint-every 5 --steps 10
+    python -m mpi_tpu_torch.train --corpus tokens.bin --checkpoint-dir ckpt \
+        --resume --steps 10                      # steps 10-19
     python -m mpi_tpu_torch.train --layers 2 --seq 64 --device cpu
 """
 
@@ -60,9 +79,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .data import ShardedLoader, SyntheticLM, from_token_file
 from .models import (TransformerConfig, full_params, generate, init_params,
                      make_lora_train_step, make_train_step, merge_lora)
 from .parallel import RankMesh
+from .utils.checkpoint import (AsyncCheckpointer, latest_step,
+                               restore_checkpoint)
 from .utils.platform import resolve_device
 
 __all__ = ["ATTENTION_IMPLS", "flagship_train_config",
@@ -162,6 +184,18 @@ def main(argv: Optional[list] = None) -> int:
                          "LoRA adapters instead (adapter-only state)")
     ap.add_argument("--sample", type=int, default=0, metavar="N",
                     help="after training, greedily generate N tokens")
+    ap.add_argument("--corpus", default=None,
+                    help="raw binary uint16 token file to train on "
+                         "(memory-mapped; native gather); token ids must "
+                         "be below the vocabulary. default: synthetic "
+                         "stream")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="save the training state here (default: no "
+                         "checkpoints)")
+    ap.add_argument("--checkpoint-every", type=int, default=10)
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the latest checkpoint in "
+                         "--checkpoint-dir")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
@@ -170,11 +204,16 @@ def main(argv: Optional[list] = None) -> int:
         ap.error("--steps must be at least 2: one warm-up, one timed")
     if min(args.sp, args.dp, args.tp) < 1:
         ap.error("--sp, --dp and --tp must be at least 1")
+    if args.checkpoint_every < 1:
+        ap.error("--checkpoint-every must be at least 1")
+    if args.resume and not args.checkpoint_dir:
+        ap.error("--resume needs --checkpoint-dir")
     if args.lora:
         unsupported = [n for n, v in (("--grad-accum", args.grad_accum > 1),
                                       ("--warmup-steps", args.warmup_steps),
                                       ("--zero1", args.zero1),
-                                      ("--fsdp", args.fsdp)) if v]
+                                      ("--fsdp", args.fsdp),
+                                      ("--resume", args.resume)) if v]
         if unsupported:
             raise SystemExit(
                 f"--lora does not support {', '.join(unsupported)} in "
@@ -193,6 +232,25 @@ def main(argv: Optional[list] = None) -> int:
     if args.dp * args.sp * args.tp > 1 or args.zero1 or args.fsdp:
         mesh = RankMesh([dev] * (args.dp * args.sp * args.tp),
                         ("dp", "sp", "tp"), sizes)
+    if args.corpus:
+        source = from_token_file(args.corpus, args.batch, args.seq + 1,
+                                 dtype="uint16")
+        # Once, before training: an id past the vocabulary is a device-side
+        # assert in the embedding on CUDA.
+        top = int(np.memmap(args.corpus, dtype=np.uint16, mode="r").max())
+        if top >= cfg.vocab:
+            raise SystemExit(
+                f"--corpus contains token id {top} >= vocab {cfg.vocab}; "
+                f"re-tokenize or remap the corpus first")
+    else:
+        source = SyntheticLM(cfg.vocab, args.batch, args.seq + 1,
+                             seed=args.seed)
+    # Resolve the resume point before building the step: the schedule's
+    # horizon is the absolute final step (start + steps), so a resumed run
+    # continues the same warmup/cosine curve.
+    start = 0
+    if args.resume:
+        start = latest_step(args.checkpoint_dir) or 0
     gen = torch.Generator().manual_seed(args.seed)
     if args.lora:
         base = init_params(cfg, gen, dev)
@@ -204,11 +262,11 @@ def main(argv: Optional[list] = None) -> int:
         init_state, step = make_train_step(
             cfg, mesh=mesh, grad_accum=args.grad_accum,
             optimizer=args.optimizer, warmup_steps=args.warmup_steps,
-            total_steps=args.steps if args.warmup_steps else None,
+            total_steps=start + args.steps if args.warmup_steps else None,
             zero1=args.zero1, fsdp=args.fsdp)
         state = init_state(gen, dev)
-    tokens = torch.from_numpy(np.random.default_rng(args.seed).integers(
-        0, cfg.vocab, (args.batch, args.seq + 1))).to(dev)
+    if start:
+        restore_checkpoint(args.checkpoint_dir, state)
     cuda = dev.type == "cuda"
     name = torch.cuda.get_device_name(dev) if cuda else "cpu"
     print(f"flagship train on {name}: batch={args.batch} seq={args.seq} "
@@ -216,26 +274,55 @@ def main(argv: Optional[list] = None) -> int:
           f"sp={args.sp} tp={args.tp} zero1={args.zero1} fsdp={args.fsdp} "
           f"optimizer={args.optimizer} warmup_steps={args.warmup_steps} "
           f"remat={args.remat} grad_accum={args.grad_accum} "
-          f"lora={args.lora} sample={args.sample}")
+          f"lora={args.lora} sample={args.sample} "
+          f"corpus={args.corpus} checkpoint_dir={args.checkpoint_dir}")
+    if start:
+        print(f"resumed from step {start}")
 
-    _, loss = step(state, tokens)  # warm-up
-    print(f"step 0 loss {float(loss):.6f} (warm-up)")
-    losses = []
+    loader = iter(ShardedLoader(source, mesh=mesh, start_step=start,
+                                device=dev))
+    ckpt = AsyncCheckpointer() if args.checkpoint_dir else None
+    losses, times, saves = [], [], []
+    try:
+        for i in range(start, start + args.steps):
+            tokens = next(loader)
+            if cuda:
+                times.append((torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True)))
+                times[-1][0].record()
+            t0 = time.perf_counter()
+            losses.append(step(state, tokens)[1])
+            if cuda:
+                times[-1][1].record()
+            else:
+                times.append((time.perf_counter() - t0) * 1e3)
+            if ckpt is not None and (i + 1) % args.checkpoint_every == 0:
+                # The step's own work ends first, so the save's cost to the
+                # loop is its copy to the host and its enqueue alone.
+                if cuda:
+                    torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                handle = ckpt.save(args.checkpoint_dir, state, step=i + 1,
+                                   max_to_keep=3)
+                saves.append((i + 1, (time.perf_counter() - t0) * 1e3,
+                              handle))
+        if ckpt is not None:
+            ckpt.wait()
+    finally:
+        loader.close()
+        if ckpt is not None:
+            ckpt.close()
     if cuda:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-    t0 = time.perf_counter()
-    for _ in range(args.steps - 1):
-        losses.append(step(state, tokens)[1])
-    if cuda:
-        end.record()
         torch.cuda.synchronize(dev)
-        ms = start.elapsed_time(end) / len(losses)
-    else:
-        ms = (time.perf_counter() - t0) * 1e3 / len(losses)
-    for i, loss in enumerate(losses, 1):
-        print(f"step {i} loss {float(loss):.6f}")
+        times = [a.elapsed_time(b) for a, b in times]
+    for i, (loss, ms) in enumerate(zip(losses, times), start):
+        first = " (first step of the run)" if i == start else ""
+        print(f"step {i} loss {float(loss)!r} {ms:.3f} ms{first}")
+    for at, ms, handle in saves:
+        print(f"checkpoint step {at}: {ms:.3f} ms on the step loop (copy "
+              f"to the host), written in {handle.seconds * 1e3:.3f} ms on "
+              f"the writer thread ({handle.result()})")
+    ms = sum(times[1:]) / len(times[1:])
     finite = all(bool(torch.isfinite(x)) for x in losses)
 
     tok_s = args.batch * args.seq / ms * 1e3

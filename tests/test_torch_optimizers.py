@@ -125,6 +125,39 @@ def test_schedules_match_optax_at_every_count(warmup, total):
         learning_rate_schedule(LR, 5, 5)
 
 
+@pytest.mark.parametrize("k", [1, 3, 6])
+@pytest.mark.parametrize("name", OPTIMIZERS)
+def test_restored_optimizer_continues_the_schedule(name, k):
+    """The update count is in the optimizer's state_dict: an optimizer
+    restored at count k sets the rates that an unbroken one sets at k,
+    k + 1, ... (optax's count, restored with its state), not those of
+    counts 0, 1, ... as a fresh one would."""
+    build = make_optimizer(name, LR, 2, 8)
+    schedule = learning_rate_schedule(LR, 2, 8)
+
+    def rates(opt, leaf, n):
+        out = []
+        for _ in range(n):
+            leaf.grad = torch.ones_like(leaf)
+            opt.step()
+            out.append(opt.param_groups[0]["lr"])
+        return out
+
+    leaf = torch.zeros(4, requires_grad=True)
+    unbroken = build([leaf])
+    rates(unbroken, leaf, k)
+    saved = unbroken.state_dict()
+    want = rates(unbroken, leaf, 4)
+    assert want == [schedule(c) for c in range(k, k + 4)]
+
+    other = torch.zeros(4, requires_grad=True)
+    restored = build([other])
+    restored.load_state_dict(saved)
+    assert rates(restored, other, 4) == want
+    fresh = build([torch.zeros(4, requires_grad=True)])
+    assert rates(fresh, fresh.param_groups[0]["params"][0], 4) != want
+
+
 # --------------------------------------------------------------------------
 # Model steps against JAX
 # --------------------------------------------------------------------------

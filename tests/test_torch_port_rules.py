@@ -83,7 +83,8 @@ def test_importing_the_port_loads_no_jax():
             "mpi_tpu_torch.collectives_generic, mpi_tpu_torch.runner, "
             "mpi_tpu_torch.backends.cuda, mpi_tpu_torch.backends.rendezvous, "
             "mpi_tpu_torch.examples.helloworld, "
-            "mpi_tpu_torch.examples.bounce\n"
+            "mpi_tpu_torch.examples.bounce, mpi_tpu_torch.data, "
+            "mpi_tpu_torch.native, mpi_tpu_torch.utils.checkpoint\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mpi_tpu'))\n"
             "print(bad)\n"
@@ -96,6 +97,7 @@ def test_importing_the_port_loads_no_jax():
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in [*(ROOT / "mpi_tpu_torch").rglob(
         "*.py"), *(ROOT / "mpi_tpu_torch").rglob("*.cu"),
+        *(ROOT / "mpi_tpu_torch").rglob("*.cpp"),
         ROOT / "chip_smoke.py"]))
 def test_port_sources_name_no_jax(path):
     hits = FORBIDDEN.findall((ROOT / path).read_text())
